@@ -1,0 +1,163 @@
+"""Medium (participating volume): grids + majorants + the fused row table.
+
+Port of volume_path_tracer_tpu/models/medium.py:
+
+  - density: DenseGrid (required)
+  - temperature: DenseGrid or None (None -> a non-emissive medium)
+  - majorants: MajorantPyramid over density
+  - density_rows: the fused table [(X+1)(Y+1)(Z+1) + NB, 8 or 16]: corner
+    rows, then per-brick (brick, superbrick) majorant rows. One row read per
+    lane-step serves either a trilinear sample or a segment's majorants.
+    16-wide rows carry an alignment-compatible temperature grid's corners in
+    columns 8..15.
+  - temperature_rows: corner rows of a temperature grid that could not be
+    folded (its own transform, 8-wide density rows), else None.
+
+All tensors of a Medium live on one device, chosen at Medium.from_grids.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..grids.grid import DenseGrid, _pack_columns, dense_grid_from_array, pack_corner_rows
+from ..grids.majorant import MajorantPyramid, build_majorants
+from ..utils.device import DeviceLike, resolve_device
+
+
+def temperature_on_density_grid(density: DenseGrid, temperature: Optional[DenseGrid]):
+    """Temperature resampled onto the density grid's frame, or None.
+
+    Returns [X+2, Y+2, Z+2] T with T[q + 1] = the temperature grid's value
+    at density voxel coordinate q for q in -1..X per axis (the corner-table
+    extent). Exact when the grids are alignment-compatible (same voxel size,
+    integer index offset between frames): trilinear interpolation of these
+    corners then equals the own-transform temperature sample at every
+    collision point. None for misaligned grids (the caller keeps the
+    separate temperature-row gather).
+    """
+    if temperature is None:
+        return None
+    vd, vt = density.voxel_size, temperature.voxel_size
+    if abs(vt - vd) > 1e-9 * max(vd, vt):
+        return None
+    delta = []
+    for a in range(3):
+        dw = (
+            density.origin_ijk[a] * vd
+            + density.world_offset[a]
+            - temperature.world_offset[a]
+        ) / vt - temperature.origin_ijk[a]
+        r = round(dw)
+        if abs(dw - r) > 1e-4:
+            return None
+        delta.append(int(r))
+    X, Y, Z = density.shape
+    tX, tY, tZ = temperature.shape
+    lo = [max(0, 1 - d) for d in delta]
+    hi = [min(s + 2, ts + 1 - d) for s, ts, d in zip((X, Y, Z), (tX, tY, tZ), delta)]
+    out = torch.zeros((X + 2, Y + 2, Z + 2), dtype=torch.float32, device=density.device)
+    if any(h <= l for l, h in zip(lo, hi)):
+        return out  # disjoint bboxes: temperature is background 0 everywhere
+    out[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = temperature.data[
+        lo[0] - 1 + delta[0]:hi[0] - 1 + delta[0],
+        lo[1] - 1 + delta[1]:hi[1] - 1 + delta[1],
+        lo[2] - 1 + delta[2]:hi[2] - 1 + delta[2],
+    ]
+    return out
+
+
+def pack_fused_rows(data: torch.Tensor, pyr: MajorantPyramid, temp_on_density=None) -> torch.Tensor:
+    """The integrator's hot-path table [(X+1)(Y+1)(Z+1) + NB, 8 or 16].
+
+    Corner rows of `data` (columns 0..7), the padded temperature's corner
+    rows when given (columns 8..15), then the majorant rows (brick,
+    superbrick, zero-padded). Written into one preallocated table.
+    """
+    width = 8 if temp_on_density is None else 16
+    nb = pyr.rows.shape[0]
+    out = _pack_columns(data, padded=False, width=width, extra_rows=nb)
+    if temp_on_density is not None:
+        _pack_columns(temp_on_density, padded=True, width=width, out=out, col0=8)
+    out[out.shape[0] - nb:, :2] = pyr.rows
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Medium:
+    density: DenseGrid
+    majorants: MajorantPyramid
+    temperature: Optional[DenseGrid] = None
+    density_rows: Optional[torch.Tensor] = None
+    temperature_rows: Optional[torch.Tensor] = None
+
+    @property
+    def has_temperature(self) -> bool:
+        return self.temperature is not None
+
+    @property
+    def device(self) -> torch.device:
+        return self.density.device
+
+    @staticmethod
+    def from_grids(
+        density: DenseGrid,
+        temperature: Optional[DenseGrid] = None,
+        order: int = 1,
+        pack: bool = True,
+        fuse_temperature: bool = True,
+        device: DeviceLike = None,
+    ) -> "Medium":
+        """Build a medium on `device` (CUDA unless device="cpu"), computing
+        majorants and, with pack=True, the fused row table."""
+        dev = resolve_device(device)
+        density = density.to(dev)
+        temperature = temperature.to(dev) if temperature is not None else None
+        majorants = build_majorants(density, order=order)
+        t_on_d = (
+            temperature_on_density_grid(density, temperature)
+            if (pack and fuse_temperature)
+            else None
+        )
+        rows = pack_fused_rows(density.data, majorants, t_on_d) if pack else None
+        # The separate temperature table is read only when the temperature
+        # is not folded into the fused rows.
+        trows = (
+            pack_corner_rows(temperature.data)
+            if (pack and temperature is not None and t_on_d is None)
+            else None
+        )
+        return Medium(
+            density=density,
+            majorants=majorants,
+            temperature=temperature,
+            density_rows=rows,
+            temperature_rows=trows,
+        )
+
+
+def _grid_from_numpy(g) -> DenseGrid:
+    """A DenseGrid from an object with data, origin_ijk, voxel_size and
+    world_offset attributes (a JAX DenseGrid qualifies)."""
+    return dense_grid_from_array(
+        np.asarray(g.data, dtype=np.float32), g.origin_ijk, g.voxel_size, g.world_offset
+    )
+
+
+def medium_from_numpy(density, temperature=None, device: DeviceLike = None, **kwargs) -> Medium:
+    """Medium.from_grids over grids given as numpy arrays plus transforms.
+
+    density / temperature: objects with `data` ([X, Y, Z] array),
+    `origin_ijk`, `voxel_size` and `world_offset` attributes (the JAX
+    package's DenseGrid fields). kwargs go to Medium.from_grids (order, pack,
+    fuse_temperature).
+    """
+    return Medium.from_grids(
+        _grid_from_numpy(density),
+        _grid_from_numpy(temperature) if temperature is not None else None,
+        device=device,
+        **kwargs,
+    )
