@@ -6,23 +6,29 @@
 Phases, each stopping the run with a non-zero exit on failure:
 
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile csrc/trace_lanes.cu with nvcc; print the seconds taken
-  3. kernel   the CUDA lane kernel against its plain PyTorch version on the
-              card: one step on a mid-flight flagship batch (every state
-              field, lane by lane), then full traces on three small scenes
+  2. build    compile csrc/trace_lanes.cu with nvcc; print the seconds taken,
+              registers and spills of each kernel, and the occupancy
+  3. kernels  both CUDA kernels against their plain PyTorch versions on the
+              card. trace_lanes (state in, state out): one step on a
+              mid-flight flagship batch (every state field, lane by lane),
+              then full traces on three small scenes. render_wave (pixel ids
+              in, film out): the same three scenes through a small camera
   4. flagship the main path, Scene.from_config -> render -> film_to_srgb_u8
               -> write_png, on the flagship configuration (wdas_cloud
               transport, fog_sphere(30, 6) = 77^3, 256x256 at 16 waves);
-              rays/s, launch counts, n_capped, finiteness; then one wave's
-              full trace by the kernel against the plain version, the
-              kernel's device time, and its bound
+              rays/s, launch counts, n_capped, finiteness. Then one wave by
+              each kernel against its plain version, a chunked and a
+              repeated wave bitwise, the kernels' device times, bounds, SIMT
+              efficiency and idle tail, the device time against max_steps,
+              the ray-batch path (render_rays_wave, which goes through
+              trace_lanes), and a profile of one pass
   5. fire     the same path on bench.py's fire cell (fire transport,
               fire_plume(96, 28), 256x256, 4 waves): the misaligned
               temperature grid (8-wide rows plus the temperature gather) and
-              the aligned one (16-wide rows)
+              the aligned one (16-wide rows), with the kernel's lines
   6. 512^3    big_cloud(512) with its 4.3 GB fused table, 256x256, 2 waves;
-              rays/s and peak device memory (the generated grid is cached
-              in chip_smoke_out/ for later runs)
+              rays/s, peak device memory and the kernel's lines (the
+              generated grid is cached in chip_smoke_out/ for later runs)
   7. cli      cli.main on the procedural plume, 256x256, 2 waves; the PNG
               is read back
 
@@ -45,8 +51,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # Float operations per lane-step of csrc/trace_lanes.cu, counted from the
 # source for a non-emissive collision or crossing step (draws, free flight,
-# gather point, trilinear weights and dot, segment derivation, event).
+# gather point, trilinear weights and dot, segment derivation, event), and
+# per camera ray made by render_wave_kernel (jitter, ray, box clip).
 OPS_PER_LANE_STEP = 150
+OPS_PER_RAY_SETUP = 80
 
 # The flagship transport (scenes/wdas_cloud.json, as bench.py pins it).
 WDAS_SCENE = {
@@ -68,6 +76,7 @@ WDAS_SCENE = {
                           "up": [0.0, 1.0, 0.0], "vfov_deg": 35.0, "imaging_ratio": 0.1},
 }
 FLAGSHIP_MAX_ITERS = 4096
+HD_SCENE = dict(WDAS_SCENE, output_size=[1920, 1080], num_waves=1)
 
 # bench.py's fire cell: scenes/fire.json transport, fire_plume(96, 28) and
 # the camera of bench.py:237, 256x256.
@@ -135,6 +144,29 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, reps, kernel_name):
+    """Mean device milliseconds of the kernels named `kernel_name` over
+    `reps` calls of fn(), from CUPTI kernel records (no wrapper work, no
+    host time). CUPTI now and then drops records of a window's first
+    launches: a window that kept fewer than all is taken once more, and the
+    mean is over the records kept, at least half."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kev = [e for e in prof.key_averages() if kernel_name in e.key]
+        n_kev = sum(e.count for e in kev)
+        if n_kev == reps:
+            break
+    check(reps // 2 <= n_kev <= reps, f"the profiler saw {n_kev} launches of {kernel_name} in {reps} calls")
+    return sum(e.self_device_time_total for e in kev) / n_kev / 1e3
+
+
 def trace_statistic(L_k, nc_k, L_p, nc_p, what):
     """Hold a kernel trace to the plain one by the statistic of
     tests/test_megakernel.py: lane-close > 0.95 at rtol 1e-4, atol 1e-5 (FMA
@@ -174,10 +206,72 @@ def big_cloud_cached(n):
     return grid, False
 
 
+def film_statistic(film_k, nc_k, film_p, nc_p, what):
+    """Hold a film the wave kernel made from zero to the plain version's:
+    weights exactly 1 on both, radiance by trace_statistic."""
+    k = film_k.reshape(-1, 4).cpu().numpy()
+    p = film_p.reshape(-1, 4).cpu().numpy()
+    check(bool((k[:, 3] == p[:, 3]).all()), f"{what}: sample counts differ")
+    trace_statistic(k[:, :3], nc_k, p[:, :3], nc_p, what)
+
+
+def wave_args(scene, wave):
+    from volume_path_tracer_tpu_torch.utils import rng as vrng
+
+    return dict(medium=scene.medium, params=scene.params, camera=scene.camera,
+                bb_table=scene.bb_table, stream=vrng.mix_stream(scene.seed, wave),
+                use_jitter=scene.use_jitter, imaging_ratio=scene.camera.imaging_ratio)
+
+
+def wave_kernel_report(scene, what, card):
+    """render_wave_kernel on wave 1 of `scene`, alone: device time (CUPTI,
+    mean of 10), and from one measuring launch the lane-steps, the distinct
+    rows read, SIMT efficiency as issued and the idle tail. The bound counts
+    each byte once: 16 B of film read and 16 B written per pixel and every
+    distinct table row; operations: the lane-steps taken plus the ray set-up."""
+    import torch
+
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+
+    dev = scene.device
+    H, W = scene.height, scene.width
+    n = W * H
+    kw = wave_args(scene, 1)
+    film = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+    ms = kernel_device_ms(lambda: mk.render_wave(film=film, pixels=range(0, n), **kw), 10,
+                          "render_wave_kernel")
+    rows = scene.medium.density_rows
+    trows = scene.medium.temperature_rows
+    n_t = trows.shape[0] if (trows is not None and rows.shape[1] == 8 and scene.bb_table is not None) else 0
+    tap = torch.zeros(rows.shape[0] + n_t, dtype=torch.uint8, device=dev)
+    stat = mk.launch_stat(dev)
+    iters, ncap = mk.render_wave(film=film, pixels=range(0, n), row_tap=tap, stat=stat, **kw)
+    torch.cuda.synchronize()
+    st = mk.read_launch_stat(stat)
+    rows_read = int(tap[:rows.shape[0]].sum())
+    trows_read = int(tap[rows.shape[0]:].sum())
+    row_bytes = rows_read * rows.shape[1] * 4 + trows_read * 32
+    bytes_moved = n * 32 + row_bytes
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops = st["lane_steps"] * OPS_PER_LANE_STEP + n * OPS_PER_RAY_SETUP
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"render_wave {what} ({n} pixels, one wave): kernel {ms:.4f} ms (device time, mean of 10); "
+          f"lane-steps {st['lane_steps']} (longest lane {int(iters)}, n_capped {int(ncap)}); rows read "
+          f"{rows_read} of {rows.shape[0]}" + (f" and {trows_read} temperature rows" if n_t else "")
+          + f"; bound {bound_ms:.5f} ms ({by}: {bytes_moved} B = {n * 32} B film + {row_bytes} B rows, "
+          f"{bytes_ms:.5f} ms; {ops} fp32 ops, {ops_ms:.5f} ms) = {bound_ms / ms:.4f} of the kernel's time; "
+          f"SIMT efficiency as issued {st['simt_efficiency']:.4f} ({st['warp_steps']} warp-steps on "
+          f"{st['warps']} warps); under half of the warps at work for {st['half_idle_share']:.3f} of the "
+          f"measuring launch ({st['span_ns'] / 1e6:.4f} ms on the device timer) on {card}")
+    return dict(ms=ms, bound_ms=bound_ms, bound_by=by, **st)
+
+
 def profile_pass(scene, png_path, best_s, what):
     """Where one pass of the main path spends its time (torch.profiler,
     CUPTI): device time summed over the kernels alone (a PyTorch op's own
-    entry repeats its kernels' time, so only device events count), the
+    entry repeats its kernels' time, so only device events count), the wave
     kernel's share, the device busy share, and host calls per wave."""
     import torch
     from torch.autograd import DeviceType
@@ -185,46 +279,83 @@ def profile_pass(scene, png_path, best_s, what):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_passes(scene, 1, png_path)
+        _, (render_s,), _, _ = render_passes(scene, 1, png_path)
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
     dev = [e for e in ka if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in dev)
-    kern_us = sum(e.self_device_time_total for e in dev if "trace_lanes_kernel" in e.key)
-    check(kern_us > 0, f"{what}: the profiler saw no trace_lanes device time")
+    kern_us = sum(e.self_device_time_total for e in dev if "render_wave_kernel" in e.key)
+    check(kern_us > 0, f"{what}: the profiler saw no render_wave_kernel device time")
 
-    def calls(key):
-        return sum(e.count for e in ka if e.key == key)
+    def calls(*keys):
+        return sum(e.count for e in ka if e.key in keys)
 
     waves = scene.num_waves
-    print(f"profile of one {what} pass: device time {dev_us / 1e3:.3f} ms (trace_lanes "
-          f"{kern_us / 1e3:.3f} ms = {kern_us / dev_us:.3f} of it), device busy share "
-          f"{dev_us / 1e6 / wall:.3f} of the profiled {wall * 1e3:.1f} ms and "
-          f"{dev_us / 1e6 / best_s:.3f} of the best unprofiled pass; per wave: "
-          f"{calls('cudaLaunchKernel') / waves:.1f} kernel launches, "
-          f"{calls('cudaStreamSynchronize') / waves:.1f} stream syncs, "
-          f"{calls('cudaMemcpyAsync') / waves:.1f} copies")
+    print(f"profile of one {what} pass: device time {dev_us / 1e3:.3f} ms (render_wave_kernel "
+          f"{kern_us / 1e3:.3f} ms = {kern_us / dev_us:.3f} of it, {kern_us / 1e3 / waves:.4f} ms a wave), "
+          f"device busy share {dev_us / 1e6 / wall:.3f} of the profiled {wall * 1e3:.1f} ms "
+          f"({kern_us / 1e6 / render_s:.3f} of its {render_s * 1e3:.1f} ms of render by the wave kernel "
+          f"alone) and {dev_us / 1e6 / best_s:.3f} of the best unprofiled pass; per wave: "
+          f"{calls('cudaLaunchKernel', 'cudaLaunchKernelExC') / waves:.1f} kernel launches, "
+          f"{calls('cudaStreamSynchronize', 'cudaDeviceSynchronize') / waves:.1f} syncs, "
+          f"{calls('cudaMemcpyAsync') / waves:.1f} copies, {calls('cudaMemsetAsync') / waves:.1f} memsets")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:70]}")
 
 
 def render_passes(scene, reps, png_path):
-    """Time `reps` full passes of the main path (render -> tonemap -> PNG)."""
+    """Time `reps` full passes of the main path (render -> tonemap -> PNG).
+    Returns the passes' seconds, and of each the seconds until the film was
+    rendered (a sync after render), the last film and image."""
     import torch
 
     from volume_path_tracer_tpu_torch.io.png import write_png
     from volume_path_tracer_tpu_torch.render.renderer import render
     from volume_path_tracer_tpu_torch.utils.color import film_to_srgb_u8
 
-    times, film = [], None
+    times, render_times, film = [], [], None
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         film = render(scene)
+        torch.cuda.synchronize()
+        render_times.append(time.perf_counter() - t0)
         img = film_to_srgb_u8(film).cpu().numpy()
         write_png(png_path, img)
         times.append(time.perf_counter() - t0)
-    return times, film, img
+    return times, render_times, film, img
+
+
+def main_path(scene, passes, png_path, what, card):
+    """Drive the main path `passes` times with every launch counter set to 0
+    just before and read just after; check that it went through the wave
+    kernel alone, and that the film is finite with weights == waves."""
+    import torch
+
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+    from volume_path_tracer_tpu_torch.render.renderer import render_wave_image
+
+    mk.WAVE_LAUNCHES = mk.LAUNCHES = mk.PLAIN_WAVE_LAUNCHES = mk.PLAIN_LAUNCHES = 0
+    times, render_times, film, img = render_passes(scene, passes, png_path)
+    counts = dict(render_wave=mk.WAVE_LAUNCHES, trace_lanes=mk.LAUNCHES,
+                  render_wave_plain=mk.PLAIN_WAVE_LAUNCHES, trace_lanes_plain=mk.PLAIN_LAUNCHES)
+    waves = scene.num_waves
+    rays_s = scene.width * scene.height * waves / min(times)
+    ncap = sum(int(render_wave_image(scene, w, return_ncap=True)[1]) for w in range(1, waves + 1))
+    finite = bool(torch.isfinite(film).all())
+    weights_ok = bool((film[..., 3] == waves).all())
+    print(f"{what} {scene.width}x{scene.height}x{waves}: rays/s {rays_s:.1f} (best of {passes}; pass seconds "
+          f"{[round(t, 4) for t in times]}, of which render {[round(t, 4) for t in render_times]}, the "
+          f"rest tonemap and PNG); launches in {passes} passes {json.dumps(counts)} = "
+          f"{counts['render_wave'] / (passes * waves):.2f} render_wave launches a wave; n_capped ({waves} "
+          f"waves, max_iters {scene.params.max_iters}) {ncap}, film finite {finite}, weights == waves "
+          f"{weights_ok}, image mean {img.mean():.2f} on {card}")
+    check(counts["render_wave"] > 0, f"{what}: the main path never launched the wave kernel")
+    check(counts["render_wave_plain"] == 0 and counts["trace_lanes_plain"] == 0,
+          f"{what}: the main path ran a plain version")
+    check(finite and weights_ok, f"{what}: film is not finite or has wrong weights")
+    check(img.max() > 0, f"{what}: image is black")
+    return times, rays_s, ncap, counts
 
 
 def main():
@@ -242,12 +373,14 @@ def main():
 
     from volume_path_tracer_tpu_torch.grids.grid import dense_grid_from_array
     from volume_path_tracer_tpu_torch.grids.procedural import fire_plume, fog_sphere
+    from volume_path_tracer_tpu_torch.models.camera import Camera
     from volume_path_tracer_tpu_torch.models.medium import Medium
     from volume_path_tracer_tpu_torch.render import integrator as integ
     from volume_path_tracer_tpu_torch.render import megakernel as mk
-    from volume_path_tracer_tpu_torch.render.renderer import Scene, pixel_coords, render, render_wave_image
+    from volume_path_tracer_tpu_torch.render.renderer import (
+        Scene, pixel_coords, render, render_rays_wave, render_wave_image)
     from volume_path_tracer_tpu_torch.utils import rng as vrng
-    from volume_path_tracer_tpu_torch.utils.config import loads_configuration
+    from volume_path_tracer_tpu_torch.utils.config import CameraParameters, loads_configuration
     from volume_path_tracer_tpu_torch.utils.spectral import blackbody_xyz_table
 
     dev = torch.device("cuda", 0)
@@ -265,11 +398,15 @@ def main():
     print(f"build_s {time.perf_counter() - t0:.2f}  ({os.path.basename(lib_path)})")
     with open(lib_path + ".log") as f:
         for line in f:
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip())
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print("  " + line.strip()[:160])
+    wave_blocks, trace_blocks, threads, num_sms = mk.occupancy(dev)
+    print(f"occupancy: render_wave_kernel {wave_blocks / num_sms:.2f} and trace_lanes_kernel "
+          f"{trace_blocks / num_sms:.2f} resident blocks of {threads} threads per SM on {num_sms} SMs = "
+          f"{wave_blocks * threads // 32} and {trace_blocks * threads // 32} resident warps")
 
     # ------------------------------------------------------------------
-    phase("3 kernel vs plain")
+    phase("3 kernels vs plain")
     flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
     flag_med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0))
     flag = Scene.from_config(flag_cfg, flag_med, max_iters=FLAGSHIP_MAX_ITERS)
@@ -277,12 +414,12 @@ def main():
     coords = torch.from_numpy(pixel_coords(W, H)).to(dev)
     pids = torch.arange(W * H, dtype=torch.int32, device=dev)
     stream = vrng.mix_stream(flag.seed, 1)
-    u_jit = vrng.counter_uniforms(pids, stream, 2**31 - 1, 2)
+    u_jit = vrng.counter_uniforms(pids, stream, mk.JITTER_COUNTER, 2)
     o_w, d_w = flag.camera.generate_rays(coords, u_jit * 0.5)
     sf0, si0 = mk.pack_state(integ.init_state(flag_med, o_w, d_w, flag.params))
     streams = integ.lane_streams(stream, W * H, dev)
 
-    # (a) one step on a mid-flight state (20 plain steps in)
+    # (a) trace_lanes: one step on a mid-flight state (20 plain steps in)
     sf_mid, si_mid = mk.trace_lanes_plain(flag_med, flag.params, None, sf0, si0, pids, streams, 20)
     kf, ki = mk.trace_lanes(flag_med, flag.params, None, sf_mid, si_mid, pids, streams, 1)
     torch.cuda.synchronize()
@@ -299,20 +436,23 @@ def main():
     check(one_step_agree >= 0.99, f"one-step agreement {one_step_agree} < 0.99")
     check(bool(i_ok[f_ok].all()), "integer fields differ where the float fields agree")
 
-    # (b) full traces on the three scenes of tests/test_megakernel.py
+    # (b) full traces on the three scenes of tests/test_megakernel.py:
+    # trace_lanes on a ray batch, render_wave through a small camera
     dens, temp = fire_plume(height=40, radius=10.0)
     temp_al = dense_grid_from_array(temp.data, temp.origin_ijk, temp.voxel_size, (0.0, 0.0, 0.0))
     bb = torch.from_numpy(blackbody_xyz_table()).to(dev)
+    fire_cam = CameraParameters((60.0, 20.0, 0.0), (0.0, 20.0, 0.0), (0.0, 1.0, 0.0), 40.0, 0.1)
+    fog_cam = CameraParameters((45.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 40.0, 0.1)
     cases = [
         ("fog_sphere", Medium.from_grids(fog_sphere(radius=12.0, falloff=3.0)),
-         integ.IntegratorParams(**FOG_PARAMS), None, (-14, 14), (-14, 14)),
+         integ.IntegratorParams(**FOG_PARAMS), None, (-14, 14), (-14, 14), fog_cam),
         ("fire_plume_8wide", Medium.from_grids(dens, temp),
-         integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10)),
+         integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10), fire_cam),
         ("fire_plume_16wide", Medium.from_grids(dens, temp_al),
-         integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10)),
+         integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10), fire_cam),
     ]
-    N = 2048
-    for name, med, prm, bbt, yr, zr in cases:
+    N, SW, SH = 2048, 64, 32
+    for name, med, prm, bbt, yr, zr, cam_p in cases:
         rng = np.random.default_rng(0)
         o = np.stack([np.full(N, -40.0), rng.uniform(*yr, N), rng.uniform(*zr, N)], -1)
         o = torch.tensor(o, dtype=torch.float32, device=dev)
@@ -322,42 +462,70 @@ def main():
         L_k, _, nc_k = mk.trace_rays_fused(med, prm, bbt, o, d, lp, s)
         sfa, sia = mk.pack_state(integ.init_state(med, o, d, prm))
         sfp, sip = mk.trace_lanes_plain(med, prm, bbt, sfa, sia, lp, integ.lane_streams(s, N, dev), prm.max_iters)
+        width = med.density_rows.shape[1]
         trace_statistic(L_k.cpu().numpy(), int(nc_k), sfp[10:13].T.cpu().numpy(),
                         int((sip[1] != integ.DONE).sum()),
-                        f"{name} ({med.density_rows.shape[1]}-wide rows, {N} lanes)")
+                        f"trace_lanes {name} ({width}-wide rows, {N} lanes)")
+        cam = Camera.from_parameters(cam_p, (SW, SH))
+        films = [torch.zeros((SH, SW, 4), dtype=torch.float32, device=dev) for _ in range(2)]
+        wave = (med, prm, cam, bbt)
+        it_k, nc_k = mk.render_wave(*wave, films[0], range(0, SW * SH), s, True, 0.1)
+        it_p, nc_p = mk.render_wave_plain(*wave, films[1], range(0, SW * SH), s, True, 0.1)
+        film_statistic(films[0], int(nc_k), films[1], int(nc_p),
+                       f"render_wave {name} ({width}-wide rows, {SW}x{SH} pixels; longest lane "
+                       f"{int(it_k)} vs {int(it_p)})")
 
     # ------------------------------------------------------------------
     phase("4 flagship main path")
     png = os.path.join(OUT_DIR, "flagship.png")
     render_passes(flag, 1, png)  # warm-up: first-call allocations and caches
-    mk.LAUNCHES = 0
-    mk.PLAIN_LAUNCHES = 0
-    times, film, img = render_passes(flag, 3, png)
-    flag_launches, flag_plain = mk.LAUNCHES, mk.PLAIN_LAUNCHES
-    rays = W * H * flag.num_waves
-    flag_rays_s = rays / min(times)
-    finite = bool(torch.isfinite(film).all())
-    weights_ok = bool((film[..., 3] == flag.num_waves).all())
-    ncap = sum(int(render_wave_image(flag, w, return_ncap=True)[1])
-               for w in range(1, flag.num_waves + 1))
-    print(f"flagship 256x256x16: rays/s {flag_rays_s:.1f} (best of 3; pass seconds "
-          f"{[round(t, 4) for t in times]}) on {card}")
-    print(f"kernel launches {flag_launches} (3 passes x 16 waves), plain launches {flag_plain}, "
-          f"n_capped (16 waves) {ncap}, film finite {finite}, weights == waves {weights_ok}, "
-          f"image mean {img.mean():.2f}")
+    times, flag_rays_s, ncap, flag_counts = main_path(flag, 3, png, "flagship", card)
     check(ncap == 0, f"{ncap} flagship rays truncated at the step cap")
-    check(flag_launches > 0, "the main path never launched the kernel")
-    check(flag_plain == 0, "the main path ran the plain version")
-    check(finite and weights_ok, "flagship film is not finite or has wrong weights")
-    check(img.max() > 0, "flagship image is black")
+    flag_best_s = min(times)
 
-    # The kernel alone at the main path's shapes (one wave's trace, wave-1
-    # inputs), held against the plain version on the same inputs.
-    from torch.profiler import ProfilerActivity, profile
+    # render_wave alone at the main path's shapes (wave 1), held against its
+    # plain version on the same inputs.
+    n = W * H
+    kw = wave_args(flag, 1)
+    film_k = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+    it_k, nc_k = mk.render_wave(film=film_k, pixels=range(0, n), **kw)
+    torch.cuda.synchronize()
+    film_p = torch.zeros_like(film_k)
+    t0 = time.perf_counter()
+    it_p, nc_p = mk.render_wave_plain(film=film_p, pixels=range(0, n), **kw)
+    torch.cuda.synchronize()
+    wave_plain_ms = (time.perf_counter() - t0) * 1e3
+    film_statistic(film_k, int(nc_k), film_p, int(nc_p),
+                   f"render_wave flagship wave ({n} pixels, max_iters {FLAGSHIP_MAX_ITERS}; longest lane "
+                   f"{int(it_k)} vs {int(it_p)})")
+    wave_max_abs = float((film_k - film_p).abs().max())
+    # Other ranges and a second launch of the same kernel: lanes land on
+    # other threads and refill in another order, and nothing may show.
+    film_c = torch.zeros_like(film_k)
+    for start in range(0, n, 10_000):
+        mk.render_wave(film=film_c, pixels=range(start, min(start + 10_000, n)), **kw)
+    film_r = torch.zeros_like(film_k)
+    mk.render_wave(film=film_r, pixels=range(0, n), **kw)
+    perm = torch.randperm(n, device=dev, generator=torch.Generator(device=dev).manual_seed(0)).to(torch.int32)
+    film_s = torch.zeros_like(film_k)
+    mk.render_wave(film=film_s, pixels=perm, **kw)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(film_k, f)) for f in (film_c, film_r, film_s)]
+    print(f"render_wave flagship wave: chunked (7 ranges) bitwise equal {same[0]}, repeated bitwise equal "
+          f"{same[1]}, pixel ids in a random order bitwise equal {same[2]}; max_abs_err against the plain "
+          f"version {wave_max_abs:.3e} (on lanes where rounding flips an event)")
+    check(all(same), "render_wave depends on how pixels are split or ordered")
+    wave_rep = wave_kernel_report(flag, "flagship", card)
+    print(f"render_wave flagship wave: plain version {wave_plain_ms:.1f} ms")
+    # The same scene at the size the flagship was cut from: a wave of 31 times
+    # the card's resident threads, where every warp refills many times.
+    wave_kernel_report(Scene.from_config(loads_configuration(json.dumps(HD_SCENE)), flag_med,
+                                         max_iters=FLAGSHIP_MAX_ITERS), "flagship at 1920x1080", card)
 
-    def kernel_wave(tap=None):
+    # trace_lanes alone on the same wave (state in, state out).
+    def kernel_wave(tap=None, stat=None):
         return mk.trace_lanes(flag_med, flag.params, None, sf0, si0, pids, streams,
-                              FLAGSHIP_MAX_ITERS, row_tap=tap)
+                              FLAGSHIP_MAX_ITERS, row_tap=tap, stat=stat)
 
     sf_k, si_k = kernel_wave()
     wrapper_ms = cuda_ms(kernel_wave, 10)
@@ -368,41 +536,63 @@ def main():
     plain_ms = (time.perf_counter() - t0) * 1e3
     trace_statistic(sf_k[10:13].T.cpu().numpy(), int((si_k[1] != integ.DONE).sum()),
                     sf_p[10:13].T.cpu().numpy(), int((si_p[1] != integ.DONE).sum()),
-                    f"flagship wave ({W * H} lanes, max_steps {FLAGSHIP_MAX_ITERS})")
-    # The kernel's own device time: CUPTI kernel records, without the
-    # wrapper's state clones, parameter copies and casts.
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            kernel_wave()
-        torch.cuda.synchronize()
-    kev = [e for e in prof.key_averages() if "trace_lanes_kernel" in e.key]
-    n_kev = sum(e.count for e in kev)
-    check(n_kev == 10, f"the profiler saw {n_kev} of 10 kernel launches")
-    kernel_ms = sum(e.self_device_time_total for e in kev) / n_kev / 1e3
+                    f"trace_lanes flagship wave ({n} lanes, max_steps {FLAGSHIP_MAX_ITERS})")
+    kernel_ms = kernel_device_ms(kernel_wave, 10, "trace_lanes_kernel")
     # The bound counts each byte once: the state read and written, pixel ids
     # and streams (int32), and every table row the run reads, as the kernel
-    # itself marks them (row_tap); the parameter arrays (< 200 B) are left out.
+    # itself marks them (row_tap); the parameters (< 400 B) are left out.
     tap = torch.zeros(flag_med.density_rows.shape[0], dtype=torch.uint8, device=dev)
-    kernel_wave(tap)
+    stat = mk.launch_stat(dev)
+    kernel_wave(tap, stat)
+    torch.cuda.synchronize()
+    tl = mk.read_launch_stat(stat)
     rows_read = int(tap.sum())
     lane_steps = int(si_k[2].to(torch.int64).sum())
-    max_steps_taken = int(si_k[2].max())
+    check(tl["lane_steps"] == lane_steps, "the kernel's step count differs from the lane counters' sum")
     row_bytes = flag_med.density_rows.shape[1] * 4
     state_bytes = (len(mk.STATE_F32) + len(mk.STATE_I32)) * 4 * 2 + 8
-    bytes_moved = W * H * state_bytes + rows_read * row_bytes
+    bytes_moved = n * state_bytes + rows_read * row_bytes
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = lane_steps * OPS_PER_LANE_STEP / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"trace_lanes one flagship wave ({W * H} lanes): kernel {kernel_ms:.4f} ms (device time, "
+    print(f"trace_lanes one flagship wave ({n} lanes): kernel {kernel_ms:.4f} ms (device time, "
           f"mean of 10), wrapper {wrapper_ms:.4f} ms (CUDA events, mean of 10); plain version "
-          f"{plain_ms:.1f} ms; lane-steps {lane_steps} (longest lane {max_steps_taken}); "
+          f"{plain_ms:.1f} ms; lane-steps {lane_steps} (longest lane {int(si_k[2].max())}); "
           f"rows read {rows_read} of {flag_med.density_rows.shape[0]}; bound {bound_ms:.5f} ms "
           f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {bytes_moved} B = "
-          f"{W * H * state_bytes} B state + {rows_read * row_bytes} B rows, {bytes_ms:.5f} ms; "
-          f"{lane_steps * OPS_PER_LANE_STEP} fp32 ops, {ops_ms:.5f} ms)")
-    del film, sf_k, si_k, sf_p, si_p, tap
+          f"{n * state_bytes} B state + {rows_read * row_bytes} B rows, {bytes_ms:.5f} ms; "
+          f"{lane_steps * OPS_PER_LANE_STEP} fp32 ops, {ops_ms:.5f} ms); SIMT efficiency as issued "
+          f"{tl['simt_efficiency']:.4f}, under half of the warps at work for {tl['half_idle_share']:.3f} "
+          f"of the measuring launch on {card}")
+    # What holds the lane loop: the SIMT efficiency one thread per lane would
+    # have with no refill (from the lane counters), and the device time
+    # against max_steps (the slope over the first steps is a step's cost on
+    # a full card, the tail past 64 the cost of draining).
+    print(f"one thread per lane, no refill, would have: SIMT efficiency {mk.simt_efficiency(si_k[2], 32):.4f} "
+          f"per warp of 32, {mk.simt_efficiency(si_k[2], 128):.4f} per block of 128")
+    sweep = {}
+    for ms in (8, 16, 32, 64, 128, 309, FLAGSHIP_MAX_ITERS):
+        sweep[ms] = kernel_device_ms(
+            lambda: mk.trace_lanes(flag_med, flag.params, None, sf0, si0, pids, streams, ms),
+            10, "trace_lanes_kernel")
+    print("trace_lanes device ms against max_steps (flagship wave, mean of 10): "
+          + ", ".join(f"{k}: {v:.4f}" for k, v in sweep.items()))
 
-    profile_pass(flag, os.path.join(OUT_DIR, "flagship_profiled.png"), min(times), "flagship")
+    # The ray-batch path: render_rays_wave hands a batch's contribution to
+    # its caller and goes through trace_lanes. Two waves, against the films
+    # the wave kernel makes of them (other ray arithmetic: the statistic).
+    mk.WAVE_LAUNCHES = mk.LAUNCHES = mk.PLAIN_WAVE_LAUNCHES = mk.PLAIN_LAUNCHES = 0
+    contribs = [render_rays_wave(flag_med, flag.params, flag.camera, None, coords, pids, flag.seed, w,
+                                 flag.use_jitter, flag.camera.imaging_ratio) for w in (1, 2)]
+    trace_launches, trace_plain = mk.LAUNCHES, mk.PLAIN_LAUNCHES
+    check(trace_launches == 2 and trace_plain == 0 and mk.WAVE_LAUNCHES == 0,
+          "render_rays_wave did not go through trace_lanes_kernel")
+    for w, (contrib, _, nc) in zip((1, 2), contribs):
+        film_w, nc_w = render_wave_image(flag, w, return_ncap=True)
+        film_statistic(contrib, int(nc), film_w, int(nc_w), f"render_rays_wave against render_wave, wave {w}")
+    del film_k, film_p, film_c, film_r, film_s, sf_k, si_k, sf_p, si_p, tap, contribs
+
+    profile_pass(flag, os.path.join(OUT_DIR, "flagship_profiled.png"), flag_best_s, "flagship")
 
     # ------------------------------------------------------------------
     phase("5 fire")
@@ -418,24 +608,11 @@ def main():
         sc = Scene.from_config(fire_cfg, med, max_iters=FIRE_MAX_ITERS)
         png = os.path.join(OUT_DIR, f"fire_{width}wide.png")
         render(sc, num_waves=1)  # warm-up: the blackbody table, first-call allocations
-        mk.LAUNCHES = 0
-        mk.PLAIN_LAUNCHES = 0
-        times, film, img = render_passes(sc, 2, png)
-        launches, plain = mk.LAUNCHES, mk.PLAIN_LAUNCHES
-        fire_rays_s[width] = W * H * sc.num_waves / min(times)
-        ncap = sum(int(render_wave_image(sc, w, return_ncap=True)[1])
-                   for w in range(1, sc.num_waves + 1))
-        print(f"fire {width}-wide rows 256x256x{sc.num_waves}: rays/s {fire_rays_s[width]:.1f} (best of 2; "
-              f"pass seconds {[round(t, 4) for t in times]}), kernel launches {launches}, plain "
-              f"launches {plain}, n_capped ({sc.num_waves} waves, max_iters {FIRE_MAX_ITERS}) {ncap}, "
-              f"image mean {img.mean():.2f} on {card}")
-        check(launches > 0 and plain == 0, f"fire {width}-wide render did not go through the kernel")
-        check(bool(torch.isfinite(film).all()) and bool((film[..., 3] == sc.num_waves).all()),
-              f"fire {width}-wide film not finite or has wrong weights")
-        check(img.max() > 0, f"fire {width}-wide image is black")
+        times, fire_rays_s[width], _, _ = main_path(sc, 2, png, f"fire {width}-wide rows", card)
+        wave_kernel_report(sc, f"fire {width}-wide rows", card)
         profile_pass(sc, os.path.join(OUT_DIR, f"fire_{width}wide_profiled.png"), min(times),
                      f"fire {width}-wide")
-        del med, sc, film
+        del med, sc
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -454,20 +631,13 @@ def main():
     cloud_scene = Scene.from_config(loads_configuration(json.dumps(cloud_cfg)), cloud_med,
                                     max_iters=FLAGSHIP_MAX_ITERS)
     png = os.path.join(OUT_DIR, "big_cloud_512.png")
-    mk.LAUNCHES = 0
-    mk.PLAIN_LAUNCHES = 0
-    times, film, img = render_passes(cloud_scene, 2, png)
-    cloud_rays_s = W * H * 2 / min(times)
+    _, cloud_rays_s, _, _ = main_path(cloud_scene, 2, png, "big_cloud 512^3", card)
     peak = torch.cuda.max_memory_allocated()
     print(f"big_cloud 512^3: {'load from cache' if cached else 'generate'} {gen_s:.1f} s, medium "
           f"build {build_s:.2f} s, table {tuple(cloud_med.density_rows.shape)} = "
-          f"{cloud_med.density_rows.numel() * 4 / 1e9:.2f} GB")
-    print(f"big_cloud 256x256x2: rays/s {cloud_rays_s:.1f} (best of 2; pass seconds "
-          f"{[round(t, 4) for t in times]}), peak device memory {peak / 1e9:.2f} GB, "
-          f"kernel launches {mk.LAUNCHES}, plain launches {mk.PLAIN_LAUNCHES} on {card}")
-    check(mk.LAUNCHES > 0 and mk.PLAIN_LAUNCHES == 0, "512^3 render did not go through the kernel")
-    check(bool(torch.isfinite(film).all()) and img.max() > 0, "512^3 film not finite or black")
-    del cloud, cloud_med, cloud_scene, film
+          f"{cloud_med.density_rows.numel() * 4 / 1e9:.2f} GB, peak device memory {peak / 1e9:.2f} GB")
+    wave_kernel_report(cloud_scene, "big_cloud 512^3", card)
+    del cloud, cloud_med, cloud_scene
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -484,39 +654,143 @@ def main():
     png = os.path.join(OUT_DIR, "cli_plume.png")
     if os.path.exists(png):
         os.remove(png)
-    mk.LAUNCHES = 0
-    mk.PLAIN_LAUNCHES = 0
+    mk.WAVE_LAUNCHES = mk.LAUNCHES = mk.PLAIN_WAVE_LAUNCHES = mk.PLAIN_LAUNCHES = 0
     rc = cli.main([cfg_path, png, "--procedural", "plume", "--waves", "2"])
     img = read_png(png)
-    print(f"cli: rc {rc}, {png} {img.shape} max {img.max()}, kernel launches {mk.LAUNCHES}, "
-          f"plain launches {mk.PLAIN_LAUNCHES}")
+    print(f"cli: rc {rc}, {png} {img.shape} max {img.max()}, render_wave launches {mk.WAVE_LAUNCHES}, "
+          f"plain launches {mk.PLAIN_WAVE_LAUNCHES} and {mk.PLAIN_LAUNCHES}")
     check(rc == 0 and img.shape == (H, W, 3) and img.max() > 0, "cli render failed or black")
-    check(mk.LAUNCHES > 0 and mk.PLAIN_LAUNCHES == 0, "cli render did not go through the kernel")
+    check(mk.WAVE_LAUNCHES > 0 and mk.PLAIN_WAVE_LAUNCHES == 0 and mk.PLAIN_LAUNCHES == 0,
+          "cli render did not go through the wave kernel")
 
     # ------------------------------------------------------------------
     phase("8 summary")
-    print("kernels: " + json.dumps({"trace_lanes": flag_launches, "trace_lanes_plain": flag_plain}))
+    print("kernels: " + json.dumps({
+        "render_wave": flag_counts["render_wave"], "render_wave_plain": flag_counts["render_wave_plain"],
+        "trace_lanes": trace_launches, "trace_lanes_plain": trace_plain}))
     print(f"flagship_rays_per_s {flag_rays_s:.1f} fire_8wide_rays_per_s {fire_rays_s[8]:.1f} "
           f"fire_16wide_rays_per_s {fire_rays_s[16]:.1f} big_cloud_512_rays_per_s {cloud_rays_s:.1f}")
     print(card)
-    record = {"kernels": [{
-        "name": "trace_lanes",
-        "route": "cuda",
-        "source": "volume_path_tracer_tpu_torch/csrc/trace_lanes.cu",
-        "replaces": "volume_path_tracer_tpu/render/megakernel.py:617",
-        "launches": flag_launches,
-        "max_abs_err": one_step_max_abs,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-    }]}
+    source = "volume_path_tracer_tpu_torch/csrc/trace_lanes.cu"
+    replaces = "volume_path_tracer_tpu/render/megakernel.py:617"
+    record = {"kernels": [
+        {"name": "render_wave", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": flag_counts["render_wave"], "max_abs_err": wave_max_abs, "ms": wave_rep["ms"],
+         "plain_ms": wave_plain_ms, "bound_ms": wave_rep["bound_ms"], "bound_by": wave_rep["bound_by"],
+         "library_ms": None},
+        {"name": "trace_lanes", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": trace_launches, "max_abs_err": one_step_max_abs, "ms": kernel_ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None},
+    ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
+def variants(specs):
+    """python3 chip_smoke.py --variants SPEC [SPEC ...]
+
+    Times variants of the kernel source against csrc/trace_lanes.cu on the
+    flagship wave, in turns within one process (source, variants, variants
+    reversed, source), so that two versions are compared on one card. SPEC
+    is the path of a .cu file with the same C interface, or
+    NAME=VALUE[,NAME=VALUE...] for a copy of the source with those
+    `constexpr int NAME = ...;` lines changed. Prints, for each turn: the
+    registers, render_wave_kernel's device ms on the wave, SIMT efficiency as
+    issued, the idle tail, the same for one wave at 1920x1080 (where every
+    warp refills many times), trace_lanes_kernel's ms at max_steps 16, 64 and
+    309, and how the film compares with the source's.
+    """
+    import re
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from volume_path_tracer_tpu_torch.grids.procedural import fog_sphere
+    from volume_path_tracer_tpu_torch.models.medium import Medium
+    from volume_path_tracer_tpu_torch.render import integrator as integ
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+    from volume_path_tracer_tpu_torch.render.renderer import Scene, pixel_coords
+    from volume_path_tracer_tpu_torch.utils import rng as vrng
+    from volume_path_tracer_tpu_torch.utils.config import loads_configuration
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    dev = torch.device("cuda", 0)
+    print(gpu_name_and_limit())
+    original = mk.SOURCE
+    with open(original) as f:
+        text = f.read()
+    var_dir = os.path.join(mk.BUILD_DIR, "variants")
+    os.makedirs(var_dir, exist_ok=True)
+    sources = [("source", original)]
+    for spec in specs:
+        if os.path.isfile(spec):
+            sources.append((os.path.basename(spec), os.path.abspath(spec)))
+            continue
+        changed = text
+        for item in spec.split(","):
+            name, value = item.split("=")
+            changed, n_sub = re.subn(rf"(constexpr int {name} = )\w+;", rf"\g<1>{int(value)};", changed)
+            check(n_sub == 1, f"no `constexpr int {name} = ...;` in {original}")
+        path = os.path.join(var_dir, spec.replace("=", "_").replace(",", "__") + ".cu")
+        with open(path, "w") as f:
+            f.write(changed)
+        sources.append((spec, path))
+
+    flag_med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0))
+    flag = Scene.from_config(loads_configuration(json.dumps(WDAS_SCENE)), flag_med, max_iters=FLAGSHIP_MAX_ITERS)
+    W, H = flag.width, flag.height
+    n = W * H
+    pids = torch.arange(n, dtype=torch.int32, device=dev)
+    stream = vrng.mix_stream(flag.seed, 1)
+    u_jit = vrng.counter_uniforms(pids, stream, mk.JITTER_COUNTER, 2)
+    o_w, d_w = flag.camera.generate_rays(torch.from_numpy(pixel_coords(W, H)).to(dev), u_jit * 0.5)
+    sf0, si0 = mk.pack_state(integ.init_state(flag_med, o_w, d_w, flag.params))
+    streams = integ.lane_streams(stream, n, dev)
+    kw = wave_args(flag, 1)
+    hd = Scene.from_config(loads_configuration(json.dumps(HD_SCENE)), flag_med, max_iters=FLAGSHIP_MAX_ITERS)
+    hd_kw = wave_args(hd, 1)
+    hd_film = torch.zeros((hd.height, hd.width, 4), dtype=torch.float32, device=dev)
+    hd_n = hd.width * hd.height
+    reference = None
+    for name, path in sources + sources[::-1]:
+        mk.SOURCE, mk._lib = path, None
+        lib_path = mk.build()
+        with open(lib_path + ".log") as f:
+            regs = re.findall(r"Used (\d+) registers", f.read())
+        film = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+        mk.render_wave(film=film, pixels=range(0, n), **kw)
+        if reference is None:
+            reference = film
+        close = float(torch.isclose(film, reference, rtol=1e-4, atol=1e-5).all(-1).float().mean())
+        scratch = torch.zeros_like(film)
+        ms = kernel_device_ms(lambda: mk.render_wave(film=scratch, pixels=range(0, n), **kw), 10,
+                              "render_wave_kernel")
+        tap = torch.zeros(flag_med.density_rows.shape[0], dtype=torch.uint8, device=dev)
+        stat = mk.launch_stat(dev)
+        mk.render_wave(film=scratch, pixels=range(0, n), row_tap=tap, stat=stat, **kw)
+        st = mk.read_launch_stat(stat)
+        sweep = [kernel_device_ms(
+            lambda: mk.trace_lanes(flag_med, flag.params, None, sf0, si0, pids, streams, k),
+            10, "trace_lanes_kernel") for k in (16, 64, 309)]
+        hd_ms = kernel_device_ms(lambda: mk.render_wave(film=hd_film, pixels=range(0, hd_n), **hd_kw), 5,
+                                 "render_wave_kernel")
+        stat.zero_()
+        mk.render_wave(film=hd_film, pixels=range(0, hd_n), row_tap=tap, stat=stat, **hd_kw)
+        hd_st = mk.read_launch_stat(stat)
+        print(f"variant {name}: registers {'/'.join(regs)}; render_wave {ms:.4f} ms; SIMT efficiency "
+              f"{st['simt_efficiency']:.4f} on {st['warps']} warps; under half of the warps at work for "
+              f"{st['half_idle_share']:.3f}; at 1920x1080 {hd_ms:.4f} ms, SIMT efficiency "
+              f"{hd_st['simt_efficiency']:.4f}, under half at work for {hd_st['half_idle_share']:.3f}; "
+              f"trace_lanes ms at max_steps 16/64/309: "
+              + "/".join(f"{v:.4f}" for v in sweep)
+              + f"; film bitwise equal to the source's {bool(torch.equal(film, reference))}, pixels close {close:.4f}",
+              flush=True)
+    mk.SOURCE, mk._lib = original, None
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(variants(sys.argv[2:]) if sys.argv[1:2] == ["--variants"] else main())

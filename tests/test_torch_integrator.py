@@ -10,8 +10,13 @@ kernel run on the CPU (trace_rays_fused(interpret=True)).
 
 Tolerances: draws and tables are bitwise equal (test_torch_rng,
 test_torch_tables); log1p, sin and cos may differ in the last ulp between
-XLA's and torch's CPU kernels, which flips a knife-edge event on a few
-lanes. Paths are therefore held by the statistic the JAX package holds its
+XLA's and torch's CPU kernels, and the port's step takes its quotients by
+the segment's majorant and by the voxel size through a reciprocal (as its
+CUDA kernel does, where a division is the longest link of the step's chain)
+where the JAX step divides: a last-bit difference in the free-flight
+distance and the event probabilities. Either flips a knife-edge event on a
+few lanes. One step is held at rtol=1e-5, atol=1e-6 on more than 99% of
+lanes, as before that change (a last bit is 6e-8). Paths are therefore held by the statistic the JAX package holds its
 own two tracers to (tests/test_megakernel.py): more than 95% of lanes close
 at rtol=1e-4, atol=1e-5, channel means within 5%, equal n_capped.
 """
@@ -229,6 +234,10 @@ def test_kernel_source_is_built_from_the_checkout():
     import os
 
     assert os.path.isfile(tmk.SOURCE)
+    with open(tmk.SOURCE) as f:
+        source = f.read()
+    for entry, kernel in (("vpt_render_wave", "render_wave_kernel"), ("vpt_trace_lanes", "trace_lanes_kernel")):
+        assert f"int {entry}(" in source and f" {kernel}(const Args a)" in source
     assert "arch=compute_90a,code=sm_90a" in tmk.NVCC_FLAGS
     assert "--use_fast_math" not in tmk.NVCC_FLAGS
     assert tmk.BUILD_DIR.endswith(os.path.join("volume_path_tracer_tpu_torch", "_build"))

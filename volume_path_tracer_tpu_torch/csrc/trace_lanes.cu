@@ -1,4 +1,4 @@
-// trace_lanes.cu: the forward tracer's lane loop as one CUDA kernel for Hopper.
+// trace_lanes.cu: the forward tracer's lane loop as CUDA kernels for Hopper.
 //
 // Replaces the JAX package's Pallas megakernel (volume_path_tracer_tpu/
 // render/megakernel.py: the event step `kernel` built by make_kernel,
@@ -6,7 +6,7 @@
 // XLA prestep (make_prestep / fetch_rows). On the TPU those were two
 // programs per wavefront iteration because Mosaic cannot gather from a large
 // table inside a kernel; a CUDA thread reads the table in device memory
-// directly, so one thread here carries one lane through everything:
+// directly, so one thread carries one lane through a whole step:
 //
 //   PCG4D draws on (pixel id, stream, ctr, 0) -> free flight in the carried
 //   segment -> ONE row read from the fused table (the corner row at a
@@ -17,30 +17,56 @@
 //   redirect, NEE ratio tracking with Russian roulette, resume/retire, the
 //   next brick/superbrick segment) -> ctr += 1.
 //
-// A lane loops until it is DONE or has taken max_steps steps. max_steps = 1
-// is exactly one wavefront iteration of the plain step (render/integrator.py
-// make_step); max_steps = max_iters in one launch is the production tracer.
-// Every lane's draws are keyed on its own counter, so a lane looping on its
-// own takes the same path as in the wavefront with compaction: no
-// compaction, no per-iteration launch and no device->host read of the alive
-// count. State is read once and written once (SoA, neighbouring threads on
-// neighbouring lanes) and lives in registers in between.
+// The step is written once (lane_step) and follows render/integrator.py
+// make_step operation by operation. The compiler contracts multiply-adds to
+// FMA and log1pf/sinf/cosf differ in the last ulp from the host's, so lanes
+// agree with the plain version to rounding, except where rounding flips a
+// knife-edge branch; draws and table reads agree exactly.
 //
-// The arithmetic follows make_step operation by operation. The compiler
-// contracts multiply-adds to FMA and log1pf/sinf/cosf differ in the last ulp
-// from the host's, so lanes agree with the plain version to rounding, except
-// where rounding flips a knife-edge branch; draws and table reads agree
-// exactly.
+// One warp loop (warp_loop), two kernels around it:
 //
-// What bounds it on this card: one gathered row per lane-step (32 B for
-// 8-wide rows, 64 B for 16-wide), plus 24 B per blackbody pair read at an
-// emissive collision and one 32 B temperature row on 8-wide emissive media.
-// The flagship 77^3 table is about 15 MB and stays in the 50 MB L2, so the
-// dependent-load latency of that gather, not HBM bandwidth, is the likely
-// limit. What the persistent-lane design costs: warp divergence on the
-// long-path tail. Most lanes retire within tens of steps while a few run
-// hundreds; a warp runs as long as its longest lane. Wavefront with
-// compaction against persistent lanes is later work.
+//   render_wave_kernel  the renderer's wave. A lane is born from its pixel
+//                       id alone (jitter draw, camera ray, world -> index,
+//                       box clip) and ends as one 16-byte read-add-write of
+//                       the film: no per-lane state crosses device memory.
+//   trace_lanes_kernel  state in, state out (SoA sf/si), for arbitrary ray
+//                       batches and for max_steps = 1, the one-step check.
+//
+// What bounds it on this card, as measured (PERF.md, Findings): not bytes
+// and not the gather's bandwidth. A wave moves a few MB against 3.35 TB/s. A step is about 1,300 SASS instructions, most of them
+// one dependent chain (draws, log1pf, an IEEE reciprocal, the row address,
+// the gather, the trilinear dot, the event), and a warp walks every branch
+// that any of its 32 lanes takes, one after the other. One warp alone on a
+// scheduler takes about as long for a step as four do together, so the
+// card is bound by that chain's latency, and by the skew of path lengths:
+// most lanes retire within tens of steps, a few run hundreds. With one
+// thread per lane and no refill a warp runs as long as its longest lane
+// (two thirds of the issued thread-steps are idle threads), and no launch
+// ends before its longest lane has walked its chain: more than half of a
+// launch runs with under half of the warps at work.
+//
+// What the design does about it: blocks are persistent (the grid is at most
+// what the card holds resident, asked of the runtime) and every warp pulls
+// lanes from a queue. At the top of its loop, at a convergent point, the
+// warp counts its idle threads by ballot; when enough are idle one thread
+// takes that many queue entries with one atomicAdd and each idle thread
+// starts the lane at base + its rank. A retired lane's thread is refilled
+// while its neighbours go on, so the warp's threads stay busy while the
+// queue lasts. A 256x256 wave fits the resident threads at once and would
+// never refill, so a launch starts no more threads than leave each of them
+// QUEUE_PER_THREAD lanes to expect (2: measured best of 1, 2, 3, 4, 8 on
+// that wave; larger images exceed the card and refill by themselves). No
+// thread leaves the loop before the whole warp does, so every *_sync names
+// the full mask. Draws are keyed on (pixel id, stream, lane counter): a
+// lane takes the same path whichever thread carries it, and refill order
+// shows in no result. The scene's constants ride in the kernel's arguments
+// (the constant bank): no registers and no loads for them. The chain is cut where that changes no
+// result, or the same last bits in the plain step: the reciprocal of the
+// direction is carried with the lane and recomputed only when the
+// direction changes; the step's quotients by the majorant share one
+// reciprocal, as in integrator.make_step; the brick and superbrick cell
+// sizes are powers of two, so their quotients are exact products; row
+// indices are 32-bit and only the address is 64-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,24 +77,76 @@ constexpr int CAM = 0;
 constexpr int SHADOW = 1;
 constexpr int DONE = 2;
 constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 4;  // __launch_bounds__: at most 128 registers a thread
+// Idle threads a warp waits for before it takes new lanes from the queue.
+constexpr int REFILL_MIN = 8;
+// A launch starts at most n / QUEUE_PER_THREAD threads (and at most what the
+// card holds resident).
+constexpr int QUEUE_PER_THREAD = 2;
+constexpr unsigned FULL = 0xffffffffu;
+// The jitter draw's counter: one no tracing step reaches (render/renderer.py).
+constexpr uint32_t JITTER_CTR = 0x7fffffffu;
+constexpr int MAX_DEVICES = 16;
 
-// State: sf [21, n] float32 and si [3, n] int32, SoA, in the field order of
-// render/megakernel.py STATE_F32 / STATE_I32.
-// Float parameters (render/megakernel.py _kernel_params builds this array).
+// Float parameters (render/megakernel.py names this layout).
 enum FParam {
-  P_VOXEL, P_SIGMA_A, P_SIGMA_S, P_SIGMA_T, P_G, P_SUPER_TAU, P_LE_SCALE,
+  P_VOXEL, P_INV_VOXEL, P_SIGMA_A, P_SIGMA_S, P_SIGMA_T, P_G, P_SUPER_TAU, P_LE_SCALE,
   P_T_SCALE, P_T_OFFSET, P_HG_DEN0, P_HG_C1, P_HG_NUM,
-  P_WI, P_LI = P_WI + 3, P_LINF = P_LI + 3, P_DOFF = P_LINF + 3,
+  P_WI, P_WI_INV = P_WI + 3, P_LI = P_WI_INV + 3, P_LINF = P_LI + 3, P_DOFF = P_LINF + 3,
   P_TOFF = P_DOFF + 3, P_TVOXEL = P_TOFF + 3, P_TC_MAX, P_ORIGIN,
-  P_TORIGIN = P_ORIGIN + 3, P_BB_RES = P_TORIGIN + 3, NUM_FPARAMS
+  P_TORIGIN = P_ORIGIN + 3, P_BB_RES = P_TORIGIN + 3,
+  P_CAM_POS, P_CAM_MX = P_CAM_POS + 3, P_CAM_MY = P_CAM_MX + 3, P_CAM_T = P_CAM_MY + 3,
+  P_IMG_RATIO = P_CAM_T + 3, P_JITTER, NUM_FPARAMS
 };
 // Integer parameters.
 enum IParam {
   I_X, I_Y, I_Z, I_BX, I_BY, I_BZ, I_MAX_DEPTH, I_NEE, I_EMISSION,
-  I_TX, I_TY, I_TZ, I_NPAIRS, NUM_IPARAMS
+  I_TX, I_TY, I_TZ, I_NPAIRS, I_WIDTH, NUM_IPARAMS
 };
 // I_EMISSION: 0 none, 1 temperature in columns 8..15 of 16-wide rows,
 // 2 temperature from its own corner table through its own transform.
+
+struct Params {
+  float f[NUM_FPARAMS];
+  int i[NUM_IPARAMS];
+};
+
+// Everything a launch needs, passed by value.
+struct Args {
+  // trace_lanes_kernel: SoA state sf [21, n] / si [3, n] in the field order
+  // of render/megakernel.py STATE_F32 / STATE_I32, per-lane pixel ids and
+  // streams. render_wave_kernel: pids [n], or null for the range
+  // [start, start + n); one stream word; the film [H * W] float4.
+  float* sf;
+  int* si;
+  const int* pids;
+  const int* streams;
+  float4* film;
+  int n, max_steps, start;
+  uint32_t stream;
+  int* scratch;  // [0] the queue's head, [1] n_capped, [2] largest lane counter
+  const float* rows;
+  int n_rows, row_w;
+  const float* trows;
+  int n_trows;
+  const float* bb_pairs;
+  // Measuring instantiation only (tap not null): tap [n_rows + n_trows]
+  // bytes set to 1 for every row read; stat, or null: [2 + 2 * warps]:
+  // warp-steps, thread-steps that did a lane's step, then each warp's first
+  // and last %globaltimer reading.
+  unsigned char* tap;
+  unsigned long long* stat;
+  Params p;
+};
+
+struct Lane {
+  float ox, oy, oz, dx, dy, dz;
+  float ix, iy, iz;  // safe_inv(d): carried, not state
+  float t, t_exit, sig_seg, t_seg, Lx, Ly, Lz;
+  float pox, poy, poz, pdx, pdy, pdz, T_ray, phase_val;
+  int depth, mode, ctr;
+  uint32_t pid, strm;
+};
 
 __device__ __forceinline__ void pcg4d(uint32_t& v0, uint32_t& v1, uint32_t& v2, uint32_t& v3) {
   v0 = v0 * 1664525u + 1013904223u;
@@ -101,18 +179,18 @@ __device__ __forceinline__ float safe_inv(float d) {
   return sgn * (1.0f / mag) + (d == 0.f ? 1e12f : 0.f);
 }
 
-// Slab clip against [lo, hi]; t0 floored at 1e-4 (clip_ray).
-__device__ __forceinline__ void clip_box(float ox, float oy, float oz, float dx, float dy, float dz,
+// Slab clip of the ray with origin o and direction reciprocals inv against
+// [lo, hi]; t0 floored at 1e-4 (integrator.clip_ray).
+__device__ __forceinline__ void clip_box(float ox, float oy, float oz, float ix, float iy, float iz,
                                          const float* lo, const float* hi,
                                          float& t0, float& t1, bool& hit) {
   const float o[3] = {ox, oy, oz};
-  const float d[3] = {dx, dy, dz};
+  const float inv[3] = {ix, iy, iz};
   float t_lo = 0.f, t_hi = 0.f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float inv = safe_inv(d[a]);
-    const float ta = (lo[a] - o[a]) * inv;
-    const float tb = (hi[a] - o[a]) * inv;
+    const float ta = (lo[a] - o[a]) * inv[a];
+    const float tb = (hi[a] - o[a]) * inv[a];
     const float mn = fminf(ta, tb), mx = fmaxf(ta, tb);
     t_lo = a == 0 ? mn : fmaxf(t_lo, mn);
     t_hi = a == 0 ? mx : fminf(t_hi, mx);
@@ -144,295 +222,513 @@ __device__ __forceinline__ float dot8(float4 a, float4 b, const float* w) {
   return s;
 }
 
-__device__ __forceinline__ long long clampll(long long v, long long lo, long long hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
+__device__ __forceinline__ void set_direction(Lane& L, float dx, float dy, float dz) {
+  L.dx = dx; L.dy = dy; L.dz = dz;
+  L.ix = safe_inv(dx); L.iy = safe_inv(dy); L.iz = safe_inv(dz);
 }
 
-// kTap: also mark each table row the lane reads in `tap` (rows of the fused
-// table at [0, n_rows), temperature rows after them), so a measurement can
-// count the distinct bytes a run needs. The production launch has kTap false.
+// One step of one lane that is not DONE (integrator.make_step). kTap: also
+// mark each table row the lane reads in a.tap (rows of the fused table at
+// [0, n_rows), temperature rows after them), so a measurement can count the
+// distinct bytes a run needs.
 template <bool kTap>
-__global__ void __launch_bounds__(THREADS)
-trace_lanes_kernel(float* __restrict__ sf, int* __restrict__ si,
-                   const int* __restrict__ pids, const int* __restrict__ streams,
-                   int n, int max_steps,
-                   const float* __restrict__ rows, long long n_rows, int row_w,
-                   const float* __restrict__ trows, long long n_trows,
-                   const float* __restrict__ bb_pairs,
-                   const float* __restrict__ fp, const int* __restrict__ ip,
-                   unsigned char* __restrict__ tap) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+__device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
+  const float* fp = a.p.f;
+  const int* ip = a.p.i;
+  const float voxel = fp[P_VOXEL];
+  const float sigma_t = fp[P_SIGMA_T];
+  const float Ox = fp[P_ORIGIN], Oy = fp[P_ORIGIN + 1], Oz = fp[P_ORIGIN + 2];
+  const int X = ip[I_X], Y = ip[I_Y], Z = ip[I_Z];
+  const int BX = ip[I_BX], BY = ip[I_BY], BZ = ip[I_BZ];
+  const bool nee_on = ip[I_NEE] != 0;
+  const int emission = ip[I_EMISSION];
+  const float box_lo[3] = {Ox, Oy, Oz};
+  const float box_hi[3] = {Ox + (float)X, Oy + (float)Y, Oz + (float)Z};
+  const float wix = fp[P_WI], wiy = fp[P_WI + 1], wiz = fp[P_WI + 2];
 
-  // ---- lane state: one load per field ----
-  float ox = sf[0 * n + lane], oy = sf[1 * n + lane], oz = sf[2 * n + lane];
-  float dx = sf[3 * n + lane], dy = sf[4 * n + lane], dz = sf[5 * n + lane];
-  float t = sf[6 * n + lane], t_exit = sf[7 * n + lane];
-  float sig_seg = sf[8 * n + lane], t_seg = sf[9 * n + lane];
-  float Lx = sf[10 * n + lane], Ly = sf[11 * n + lane], Lz = sf[12 * n + lane];
-  float pox = sf[13 * n + lane], poy = sf[14 * n + lane], poz = sf[15 * n + lane];
-  float pdx = sf[16 * n + lane], pdy = sf[17 * n + lane], pdz = sf[18 * n + lane];
-  float T_ray = sf[19 * n + lane], phase_val = sf[20 * n + lane];
-  int depth = si[0 * n + lane], mode = si[1 * n + lane], ctr = si[2 * n + lane];
-  const uint32_t pid = (uint32_t)pids[lane];
-  const uint32_t strm = (uint32_t)streams[lane];
+  const bool in_cam = L.mode == CAM;
+  const bool in_shw = L.mode == SHADOW;
 
-  if (mode != DONE && max_steps > 0) {
-    // ---- scene constants ----
-    const float voxel = fp[P_VOXEL];
-    const float sigma_a = fp[P_SIGMA_A], sigma_s = fp[P_SIGMA_S], sigma_t = fp[P_SIGMA_T];
-    const float super_tau = fp[P_SUPER_TAU];
-    const float Ox = fp[P_ORIGIN], Oy = fp[P_ORIGIN + 1], Oz = fp[P_ORIGIN + 2];
-    const int X = ip[I_X], Y = ip[I_Y], Z = ip[I_Z];
-    const int BX = ip[I_BX], BY = ip[I_BY], BZ = ip[I_BZ];
-    const int max_depth = ip[I_MAX_DEPTH];
-    const bool nee_on = ip[I_NEE] != 0;
-    const int emission = ip[I_EMISSION];
-    const long long n_corner = (long long)(X + 1) * (Y + 1) * (Z + 1);
-    const float box_lo[3] = {Ox, Oy, Oz};
-    const float box_hi[3] = {Ox + (float)X, Oy + (float)Y, Oz + (float)Z};
-    const float wix = fp[P_WI], wiy = fp[P_WI + 1], wiz = fp[P_WI + 2];
+  // ---- draws ----
+  uint32_t r0 = L.pid, r1 = L.strm, r2 = (uint32_t)L.ctr, r3 = 0u;
+  pcg4d(r0, r1, r2, r3);
+  const float u0 = u32_to_uniform(r0), u1 = u32_to_uniform(r1);
+  const float u2 = u32_to_uniform(r2), u3 = u32_to_uniform(r3);
 
-    for (int s = 0; s < max_steps && mode != DONE; ++s) {
-      const bool in_cam = mode == CAM;
-      const bool in_shw = mode == SHADOW;
+  // ---- free flight in the carried segment ----
+  const bool has_seg = L.t_seg > L.t;
+  const float sig = fmaxf(L.sig_seg, 1e-20f);
+  // One reciprocal serves every quotient by sig in this step, and 1 / voxel
+  // comes with the parameters: IEEE divisions are the longest links of the
+  // chain (integrator.make_traversal and make_step compute the same way).
+  const float rsig = __frcp_rn(sig);
+  const float dt_w = -log1pf(-u0) * rsig;
+  const float t_cand = L.t + dt_w * fp[P_INV_VOXEL];
+  const bool collide = has_seg && (L.sig_seg > 0.f) && (t_cand < L.t_seg);
+  const float t_next = has_seg ? L.t_seg : L.t;
+  const bool exited = !collide && (t_next >= L.t_exit - 1e-6f);
+  const bool fetch = !collide && !exited;
 
-      // ---- draws ----
-      uint32_t r0 = pid, r1 = strm, r2 = (uint32_t)ctr, r3 = 0u;
-      pcg4d(r0, r1, r2, r3);
-      const float u0 = u32_to_uniform(r0), u1 = u32_to_uniform(r1);
-      const float u2 = u32_to_uniform(r2), u3 = u32_to_uniform(r3);
+  // ---- THE gather: corner row at a collision, majorant row otherwise ----
+  // Row indices fit 32 bits (the wrapper refuses a larger table); the
+  // address does not: the 16-wide 512^3 table passes 2^31 floats.
+  const float t_gather = collide ? t_cand : t_next + 1e-3f;
+  const float pcx = L.ox + L.dx * t_gather, pcy = L.oy + L.dy * t_gather, pcz = L.oz + L.dz * t_gather;
+  const float lpx = pcx - Ox, lpy = pcy - Oy, lpz = pcz - Oz;
+  const int bi = (int)floorf(lpx / 8.f), bj = (int)floorf(lpy / 8.f), bk = (int)floorf(lpz / 8.f);
+  const bool b_valid = bi >= 0 && bi < BX && bj >= 0 && bj < BY && bk >= 0 && bk < BZ;
+  const int b_flat = (clampi(bi, 0, BX - 1) * BY + clampi(bj, 0, BY - 1)) * BZ + clampi(bk, 0, BZ - 1);
+  const int ix = (int)floorf(lpx), iy = (int)floorf(lpy), iz = (int)floorf(lpz);
+  const float fx = lpx - (float)ix, fy = lpy - (float)iy, fz = lpz - (float)iz;
+  const bool valid = ix >= -1 && ix <= X - 1 && iy >= -1 && iy <= Y - 1 && iz >= -1 && iz <= Z - 1;
+  const int n_corner = (X + 1) * (Y + 1) * (Z + 1);
+  const int base = (clampi(ix + 1, 0, X) * (Y + 1) + clampi(iy + 1, 0, Y)) * (Z + 1) + clampi(iz + 1, 0, Z);
+  const int idx = clampi(collide ? base : n_corner + b_flat, 0, a.n_rows - 1);
+  const float4* rp = reinterpret_cast<const float4*>(a.rows + (size_t)idx * a.row_w);
+  if (kTap) a.tap[idx] = 1;
+  const float4 ra = __ldg(rp), rb = __ldg(rp + 1);
+  float w[8];
+  tri_weights(fx, fy, fz, w);
+  const float rho = valid ? dot8(ra, rb, w) : 0.f;
+  const float bmaj = b_valid ? ra.x : 0.f;
+  const float smaj = b_valid ? ra.y : 0.f;
 
-      // ---- free flight in the carried segment ----
-      const bool has_seg = t_seg > t;
-      const float sig = fmaxf(sig_seg, 1e-20f);
-      const float dt_w = -log1pf(-u0) / sig;
-      const float t_cand = t + dt_w / voxel;
-      const bool collide = has_seg && (sig_seg > 0.f) && (t_cand < t_seg);
-      const float t_next = has_seg ? t_seg : t;
-      const bool exited = !collide && (t_next >= t_exit - 1e-6f);
-      const bool fetch = !collide && !exited;
+  // ---- next segment (crossing lanes): brick or superbrick ----
+  const float extra = (smaj - bmaj) * sigma_t * 64.f * voxel;
+  const bool use_super = extra <= fp[P_SUPER_TAU];
+  const float cs = use_super ? 64.f : 8.f;
+  // lp / cs as a product: exact, the cell size is a power of two.
+  const float inv_cs = use_super ? 0.015625f : 0.125f;
+  const float clx = floorf(lpx * inv_cs) * cs + Ox;
+  const float cly = floorf(lpy * inv_cs) * cs + Oy;
+  const float clz = floorf(lpz * inv_cs) * cs + Oz;
+  float t_cell = fmaxf((clx - L.ox) * L.ix, ((clx + cs) - L.ox) * L.ix);
+  t_cell = fminf(t_cell, fmaxf((cly - L.oy) * L.iy, ((cly + cs) - L.oy) * L.iy));
+  t_cell = fminf(t_cell, fmaxf((clz - L.oz) * L.iz, ((clz + cs) - L.oz) * L.iz));
+  const float t_seg_f = fmaxf(fminf(t_cell, L.t_exit), t_next + 2e-3f);
+  const float sig_seg_f = (use_super ? smaj : bmaj) * sigma_t;
+  const bool real_col = collide && (rho > 0.f);
+  const bool zero_col = collide && !(rho > 0.f);
 
-      // ---- THE gather: corner row at a collision, majorant row otherwise ----
-      const float t_gather = collide ? t_cand : t_next + 1e-3f;
-      const float pcx = ox + dx * t_gather, pcy = oy + dy * t_gather, pcz = oz + dz * t_gather;
-      const float lpx = pcx - Ox, lpy = pcy - Oy, lpz = pcz - Oz;
-      const int bi = (int)floorf(lpx / 8.f), bj = (int)floorf(lpy / 8.f), bk = (int)floorf(lpz / 8.f);
-      const bool b_valid = bi >= 0 && bi < BX && bj >= 0 && bj < BY && bk >= 0 && bk < BZ;
-      const long long b_flat =
-          ((long long)clampi(bi, 0, BX - 1) * BY + clampi(bj, 0, BY - 1)) * BZ + clampi(bk, 0, BZ - 1);
-      const int ix = (int)floorf(lpx), iy = (int)floorf(lpy), iz = (int)floorf(lpz);
-      const float fx = lpx - (float)ix, fy = lpy - (float)iy, fz = lpz - (float)iz;
-      const bool valid = ix >= -1 && ix <= X - 1 && iy >= -1 && iy <= Y - 1 && iz >= -1 && iz <= Z - 1;
-      const long long base =
-          ((long long)clampi(ix + 1, 0, X) * (Y + 1) + clampi(iy + 1, 0, Y)) * (Z + 1) + clampi(iz + 1, 0, Z);
-      const long long idx = clampll(collide ? base : n_corner + b_flat, 0, n_rows - 1);
-      const float4* rp = reinterpret_cast<const float4*>(rows + idx * row_w);
-      if (kTap) tap[idx] = 1;
-      const float4 ra = __ldg(rp), rb = __ldg(rp + 1);
-      float w[8];
-      tri_weights(fx, fy, fz, w);
-      const float rho = valid ? dot8(ra, rb, w) : 0.f;
-      const float bmaj = b_valid ? ra.x : 0.f;
-      const float smaj = b_valid ? ra.y : 0.f;
-
-      // ---- next segment (crossing lanes): brick or superbrick ----
-      const float extra = (smaj - bmaj) * sigma_t * 64.f * voxel;
-      const bool use_super = extra <= super_tau;
-      const float cs = use_super ? 64.f : 8.f;
-      float t_cell = 0.f;
-      {
-        const float clx = floorf(lpx / cs) * cs + Ox;
-        const float cly = floorf(lpy / cs) * cs + Oy;
-        const float clz = floorf(lpz / cs) * cs + Oz;
-        const float lo[3] = {clx, cly, clz};
-        const float hi[3] = {clx + cs, cly + cs, clz + cs};
-        const float o[3] = {ox, oy, oz};
-        const float d[3] = {dx, dy, dz};
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float inv = safe_inv(d[a]);
-          const float mx = fmaxf((lo[a] - o[a]) * inv, (hi[a] - o[a]) * inv);
-          t_cell = a == 0 ? mx : fminf(t_cell, mx);
-        }
-      }
-      const float t_seg_f = fmaxf(fminf(t_cell, t_exit), t_next + 2e-3f);
-      const float sig_seg_f = (use_super ? smaj : bmaj) * sigma_t;
-      const bool real_col = collide && (rho > 0.f);
-      const bool zero_col = collide && !(rho > 0.f);
-
-      // ---- camera-mode collision: emission, then the event ----
-      const bool cam_col = in_cam && real_col;
-      const float p_a = sigma_a * rho / sig;
-      const float p_s = sigma_s * rho / sig;
-      const float p_n = fmaxf(1.f - p_a - p_s, 0.f);
-      if (emission != 0 && cam_col) {
-        float temp_adim;
-        if (emission == 1) {
-          const float4 ta = __ldg(rp + 2), tb = __ldg(rp + 3);
-          temp_adim = valid ? dot8(ta, tb, w) : 0.f;
-        } else {
-          // The temperature grid's own transform (sample_temperature_kelvin).
-          const float tvox = fp[P_TVOXEL];
-          const float tlx = ((pcx * voxel + fp[P_DOFF]) - fp[P_TOFF]) / tvox - fp[P_TORIGIN];
-          const float tly = ((pcy * voxel + fp[P_DOFF + 1]) - fp[P_TOFF + 1]) / tvox - fp[P_TORIGIN + 1];
-          const float tlz = ((pcz * voxel + fp[P_DOFF + 2]) - fp[P_TOFF + 2]) / tvox - fp[P_TORIGIN + 2];
-          const int TX = ip[I_TX], TY = ip[I_TY], TZ = ip[I_TZ];
-          const int jx = (int)floorf(tlx), jy = (int)floorf(tly), jz = (int)floorf(tlz);
-          float tw[8];
-          tri_weights(tlx - (float)jx, tly - (float)jy, tlz - (float)jz, tw);
-          const bool tvalid = jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1;
-          const long long tbase = clampll(
-              ((long long)clampi(jx + 1, 0, TX) * (TY + 1) + clampi(jy + 1, 0, TY)) * (TZ + 1) + clampi(jz + 1, 0, TZ),
-              0, n_trows - 1);
-          const float4* tp = reinterpret_cast<const float4*>(trows + tbase * 8);
-          if (kTap) tap[n_rows + tbase] = 1;
-          temp_adim = tvalid ? dot8(__ldg(tp), __ldg(tp + 1), tw) : 0.f;
-        }
-        const float temp_k = temp_adim * fp[P_T_SCALE] + fp[P_T_OFFSET];
-        const float tc = fminf(fmaxf(temp_k, 0.f), fp[P_TC_MAX]);
-        const float bb_res = fp[P_BB_RES];
-        const int ti = clampi((int)floorf(tc / bb_res) + 1, 0, ip[I_NPAIRS] - 1);
-        const float frac = tc / bb_res - (float)(ti - 1);
-        const float* pr = bb_pairs + ti * 6;
-        const bool hot = !(temp_k <= 0.f);
-        const float bx = hot ? __ldg(pr + 0) + __ldg(pr + 3) * frac : 0.f;
-        const float by = hot ? __ldg(pr + 1) + __ldg(pr + 4) * frac : 0.f;
-        const float bz = hot ? __ldg(pr + 2) + __ldg(pr + 5) * frac : 0.f;
-        const float pal = p_a * fp[P_LE_SCALE];
-        Lx = Lx + pal * bx;
-        Ly = Ly + pal * by;
-        Lz = Lz + pal * bz;
-      }
-      const float total = p_n + p_a + p_s;
-      const float xv = u1 * total;
-      const int event = xv <= p_n ? 0 : (xv <= p_n + p_a ? 1 : 2);
-      const bool cam_null = cam_col && event == 0;
-      const bool cam_abs = cam_col && event == 1;
-      const bool cam_scat = cam_col && event == 2;
-
-      const float phase_old = phase_val;
-      if (cam_scat) {
-        // HG redirect around d (ops/phase.sample_henyey_greenstein)
-        const float g = fp[P_G];
-        const float g2 = g * g;
-        const float denom = 1.f + g - 2.f * g * u2;
-        const float sqr = (1.f - g2) / (fabsf(denom) < 1e-12f ? 1e-12f : denom);
-        const float aniso = (1.f + g2 - sqr * sqr) / (2.f * (fabsf(g) < 1e-12f ? 1e-12f : g));
-        const float iso = 1.f - 2.f * u2;
-        const float cos_t = fabsf(g) < 1e-3f ? iso : aniso;
-        const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
-        const float phi = 6.28318548f * u3;
-        const float sin_c = fminf(fmaxf(sin_t, -1.f), 1.f);
-        float lx = sin_c * cosf(phi), ly = sin_c * sinf(phi), lz = fminf(fmaxf(cos_t, -1.f), 1.f);
-        const float nrm = sqrtf(lx * lx + ly * ly + lz * lz);
-        lx = lx / nrm; ly = ly / nrm; lz = lz / nrm;
-        const float sgn = dz >= 0.f ? 1.f : -1.f;
-        const float a = -1.f / (sgn + dz);
-        const float b = dx * dy * a;
-        const float v2x = 1.f + sgn * a * dx * dx, v2y = sgn * b, v2z = -sgn * dx;
-        const float v3x = b, v3y = sgn + a * dy * dy, v3z = -dy;
-        pdx = lx * v2x + ly * v3x + lz * dx;
-        pdy = lx * v2y + ly * v3y + lz * dy;
-        pdz = lx * v2z + ly * v3z + lz * dz;
-        pox = pcx; poy = pcy; poz = pcz;
-        // HG phase toward the distant light (ops/phase.henyey_greenstein)
-        const float cw = dx * wix + dy * wiy + dz * wiz;
-        const float den = fp[P_HG_DEN0] + fp[P_HG_C1] * cw;
-        phase_val = fp[P_HG_NUM] / (den * sqrtf(fmaxf(den, 1e-12f)));
-        depth = depth + 2;
-      }
-
-      // ---- shadow-mode collision: ratio tracking + Russian roulette ----
-      const bool shw_col = in_shw && real_col;
-      const float sigma_n = fmaxf(sig_seg - sigma_t * rho, 0.f);
-      float T_after = T_ray * (sigma_n / sig);
-      const bool rr = T_after <= 0.05f;
-      const bool rr_kill = rr && (u1 < 0.75f);
-      T_after = rr_kill ? 0.f : (rr ? T_after / 0.25f : T_after);
-      const float T_new = shw_col ? T_after : T_ray;
-      const bool shw_dead = shw_col && (T_new <= 0.f);
-      const bool shadow_finish = (in_shw && exited) || shw_dead;
-      if (shadow_finish) {
-        const float c = phase_old * T_new;
-        Lx = Lx + c * fp[P_LI];
-        Ly = Ly + c * fp[P_LI + 1];
-        Lz = Lz + c * fp[P_LI + 2];
-      }
-
-      // ---- resume / retire ----
-      const bool start_shadow = nee_on && cam_scat;
-      const bool resume = nee_on ? shadow_finish : (shadow_finish || cam_scat);
-      float t0n = 0.f, t1n = 0.f;
-      bool hitn = false;
-      if (start_shadow || resume) {
-        if (start_shadow)
-          clip_box(pcx, pcy, pcz, wix, wiy, wiz, box_lo, box_hi, t0n, t1n, hitn);
-        else
-          clip_box(pox, poy, poz, pdx, pdy, pdz, box_lo, box_hi, t0n, t1n, hitn);
-      }
-      const bool depth_ok = depth < max_depth;
-      const bool resume_ok = resume && hitn && depth_ok;
-      const bool resume_escape = resume && (!hitn || !depth_ok);
-      const bool start_shadow_ok = start_shadow && hitn;
-      const bool shadow_miss = start_shadow && !hitn;
-      float t0p = 0.f, t1p = 0.f;
-      bool hitp = false;
-      if (shadow_miss) {
-        // A shadow ray that misses the box keeps T = 1.
-        Lx = Lx + phase_val * fp[P_LI];
-        Ly = Ly + phase_val * fp[P_LI + 1];
-        Lz = Lz + phase_val * fp[P_LI + 2];
-        clip_box(pox, poy, poz, pdx, pdy, pdz, box_lo, box_hi, t0p, t1p, hitp);
-      }
-      const bool miss_resume_ok = shadow_miss && hitp && depth_ok;
-      const bool miss_resume_escape = shadow_miss && (!hitp || !depth_ok);
-      const bool done_inf = (in_cam && exited) || resume_escape || miss_resume_escape;
-      if (done_inf) {
-        Lx = Lx + fp[P_LINF];
-        Ly = Ly + fp[P_LINF + 1];
-        Lz = Lz + fp[P_LINF + 2];
-      }
-
-      if (done_inf || cam_abs) mode = DONE;
-      if (start_shadow_ok) mode = SHADOW;
-      if (resume_ok || miss_resume_ok) mode = CAM;
-
-      float t_new = t;
-      if (start_shadow_ok) {
-        ox = pcx; oy = pcy; oz = pcz;
-        dx = wix; dy = wiy; dz = wiz;
-        t_new = t0n; t_exit = t1n;
-      }
-      if (resume_ok || miss_resume_ok) {
-        ox = pox; oy = poy; oz = poz;
-        dx = pdx; dy = pdy; dz = pdz;
-        t_new = resume_ok ? t0n : t0p;
-        t_exit = resume_ok ? t1n : t1p;
-      }
-      const bool plain_adv = cam_null || zero_col || (in_shw && real_col && !shadow_finish);
-      if (plain_adv) t_new = t_cand;
-      if (fetch) t_new = t_next;
-
-      const bool new_ray = start_shadow_ok || resume_ok || miss_resume_ok;
-      if (fetch) { sig_seg = sig_seg_f; t_seg = t_seg_f; }
-      if (new_ray) { sig_seg = 0.f; t_seg = t_new; }
-      t = t_new;
-      T_ray = start_shadow_ok ? 1.f : T_new;
-      ctr = ctr + 1;
+  // ---- camera-mode collision: emission, then the event ----
+  const bool cam_col = in_cam && real_col;
+  const float p_a = fp[P_SIGMA_A] * rho * rsig;
+  const float p_s = fp[P_SIGMA_S] * rho * rsig;
+  const float p_n = fmaxf(1.f - p_a - p_s, 0.f);
+  if (emission != 0 && cam_col) {
+    float temp_adim;
+    if (emission == 1) {
+      const float4 ta = __ldg(rp + 2), tb = __ldg(rp + 3);
+      temp_adim = valid ? dot8(ta, tb, w) : 0.f;
+    } else {
+      // The temperature grid's own transform (sample_temperature_kelvin).
+      const float tvox = fp[P_TVOXEL];
+      const float tlx = ((pcx * voxel + fp[P_DOFF]) - fp[P_TOFF]) / tvox - fp[P_TORIGIN];
+      const float tly = ((pcy * voxel + fp[P_DOFF + 1]) - fp[P_TOFF + 1]) / tvox - fp[P_TORIGIN + 1];
+      const float tlz = ((pcz * voxel + fp[P_DOFF + 2]) - fp[P_TOFF + 2]) / tvox - fp[P_TORIGIN + 2];
+      const int TX = ip[I_TX], TY = ip[I_TY], TZ = ip[I_TZ];
+      const int jx = (int)floorf(tlx), jy = (int)floorf(tly), jz = (int)floorf(tlz);
+      float tw[8];
+      tri_weights(tlx - (float)jx, tly - (float)jy, tlz - (float)jz, tw);
+      const bool tvalid = jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1;
+      const int tbase = clampi(
+          (clampi(jx + 1, 0, TX) * (TY + 1) + clampi(jy + 1, 0, TY)) * (TZ + 1) + clampi(jz + 1, 0, TZ),
+          0, a.n_trows - 1);
+      const float4* tp = reinterpret_cast<const float4*>(a.trows + (size_t)tbase * 8);
+      if (kTap) a.tap[(size_t)a.n_rows + tbase] = 1;
+      temp_adim = tvalid ? dot8(__ldg(tp), __ldg(tp + 1), tw) : 0.f;
     }
+    const float temp_k = temp_adim * fp[P_T_SCALE] + fp[P_T_OFFSET];
+    const float tc = fminf(fmaxf(temp_k, 0.f), fp[P_TC_MAX]);
+    const float bb_res = fp[P_BB_RES];
+    const int ti = clampi((int)floorf(tc / bb_res) + 1, 0, ip[I_NPAIRS] - 1);
+    const float frac = tc / bb_res - (float)(ti - 1);
+    const float* pr = a.bb_pairs + ti * 6;
+    const bool hot = !(temp_k <= 0.f);
+    const float bx = hot ? __ldg(pr + 0) + __ldg(pr + 3) * frac : 0.f;
+    const float by = hot ? __ldg(pr + 1) + __ldg(pr + 4) * frac : 0.f;
+    const float bz = hot ? __ldg(pr + 2) + __ldg(pr + 5) * frac : 0.f;
+    const float pal = p_a * fp[P_LE_SCALE];
+    L.Lx = L.Lx + pal * bx;
+    L.Ly = L.Ly + pal * by;
+    L.Lz = L.Lz + pal * bz;
+  }
+  const float total = p_n + p_a + p_s;
+  const float xv = u1 * total;
+  const int event = xv <= p_n ? 0 : (xv <= p_n + p_a ? 1 : 2);
+  const bool cam_null = cam_col && event == 0;
+  const bool cam_abs = cam_col && event == 1;
+  const bool cam_scat = cam_col && event == 2;
+
+  const float phase_old = L.phase_val;
+  if (cam_scat) {
+    // HG redirect around d (ops/phase.sample_henyey_greenstein)
+    const float dx = L.dx, dy = L.dy, dz = L.dz;
+    const float g = fp[P_G];
+    const float g2 = g * g;
+    const float denom = 1.f + g - 2.f * g * u2;
+    const float sqr = (1.f - g2) / (fabsf(denom) < 1e-12f ? 1e-12f : denom);
+    const float aniso = (1.f + g2 - sqr * sqr) / (2.f * (fabsf(g) < 1e-12f ? 1e-12f : g));
+    const float iso = 1.f - 2.f * u2;
+    const float cos_t = fabsf(g) < 1e-3f ? iso : aniso;
+    const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
+    const float phi = 6.28318548f * u3;
+    const float sin_c = fminf(fmaxf(sin_t, -1.f), 1.f);
+    float sin_p, cos_p;
+    sincosf(phi, &sin_p, &cos_p);
+    float lx = sin_c * cos_p, ly = sin_c * sin_p, lz = fminf(fmaxf(cos_t, -1.f), 1.f);
+    const float nrm = sqrtf(lx * lx + ly * ly + lz * lz);
+    lx = lx / nrm; ly = ly / nrm; lz = lz / nrm;
+    const float sgn = dz >= 0.f ? 1.f : -1.f;
+    const float aa = -1.f / (sgn + dz);
+    const float b = dx * dy * aa;
+    const float v2x = 1.f + sgn * aa * dx * dx, v2y = sgn * b, v2z = -sgn * dx;
+    const float v3x = b, v3y = sgn + aa * dy * dy, v3z = -dy;
+    L.pdx = lx * v2x + ly * v3x + lz * dx;
+    L.pdy = lx * v2y + ly * v3y + lz * dy;
+    L.pdz = lx * v2z + ly * v3z + lz * dz;
+    L.pox = pcx; L.poy = pcy; L.poz = pcz;
+    // HG phase toward the distant light (ops/phase.henyey_greenstein)
+    const float cw = dx * wix + dy * wiy + dz * wiz;
+    const float den = fp[P_HG_DEN0] + fp[P_HG_C1] * cw;
+    L.phase_val = fp[P_HG_NUM] / (den * sqrtf(fmaxf(den, 1e-12f)));
+    L.depth = L.depth + 2;
   }
 
-  // ---- write back ----
-  sf[0 * n + lane] = ox; sf[1 * n + lane] = oy; sf[2 * n + lane] = oz;
-  sf[3 * n + lane] = dx; sf[4 * n + lane] = dy; sf[5 * n + lane] = dz;
-  sf[6 * n + lane] = t; sf[7 * n + lane] = t_exit;
-  sf[8 * n + lane] = sig_seg; sf[9 * n + lane] = t_seg;
-  sf[10 * n + lane] = Lx; sf[11 * n + lane] = Ly; sf[12 * n + lane] = Lz;
-  sf[13 * n + lane] = pox; sf[14 * n + lane] = poy; sf[15 * n + lane] = poz;
-  sf[16 * n + lane] = pdx; sf[17 * n + lane] = pdy; sf[18 * n + lane] = pdz;
-  sf[19 * n + lane] = T_ray; sf[20 * n + lane] = phase_val;
-  si[0 * n + lane] = depth; si[1 * n + lane] = mode; si[2 * n + lane] = ctr;
+  // ---- shadow-mode collision: ratio tracking + Russian roulette ----
+  const bool shw_col = in_shw && real_col;
+  const float sigma_n = fmaxf(L.sig_seg - sigma_t * rho, 0.f);
+  float T_after = L.T_ray * (sigma_n * rsig);
+  const bool rr = T_after <= 0.05f;
+  const bool rr_kill = rr && (u1 < 0.75f);
+  T_after = rr_kill ? 0.f : (rr ? T_after / 0.25f : T_after);
+  const float T_new = shw_col ? T_after : L.T_ray;
+  const bool shw_dead = shw_col && (T_new <= 0.f);
+  const bool shadow_finish = (in_shw && exited) || shw_dead;
+  if (shadow_finish) {
+    const float c = phase_old * T_new;
+    L.Lx = L.Lx + c * fp[P_LI];
+    L.Ly = L.Ly + c * fp[P_LI + 1];
+    L.Lz = L.Lz + c * fp[P_LI + 2];
+  }
+
+  // ---- resume / retire ----
+  const bool start_shadow = nee_on && cam_scat;
+  const bool resume = nee_on ? shadow_finish : (shadow_finish || cam_scat);
+  // The pending ray's reciprocals: needed only where a lane resumes.
+  float pix = 0.f, piy = 0.f, piz = 0.f;
+  float t0n = 0.f, t1n = 0.f;
+  bool hitn = false;
+  if (start_shadow) {
+    clip_box(pcx, pcy, pcz, fp[P_WI_INV], fp[P_WI_INV + 1], fp[P_WI_INV + 2], box_lo, box_hi, t0n, t1n, hitn);
+  } else if (resume) {
+    pix = safe_inv(L.pdx); piy = safe_inv(L.pdy); piz = safe_inv(L.pdz);
+    clip_box(L.pox, L.poy, L.poz, pix, piy, piz, box_lo, box_hi, t0n, t1n, hitn);
+  }
+  const bool depth_ok = L.depth < ip[I_MAX_DEPTH];
+  const bool resume_ok = resume && hitn && depth_ok;
+  const bool resume_escape = resume && (!hitn || !depth_ok);
+  const bool start_shadow_ok = start_shadow && hitn;
+  const bool shadow_miss = start_shadow && !hitn;
+  float t0p = 0.f, t1p = 0.f;
+  bool hitp = false;
+  if (shadow_miss) {
+    // A shadow ray that misses the box keeps T = 1.
+    L.Lx = L.Lx + L.phase_val * fp[P_LI];
+    L.Ly = L.Ly + L.phase_val * fp[P_LI + 1];
+    L.Lz = L.Lz + L.phase_val * fp[P_LI + 2];
+    pix = safe_inv(L.pdx); piy = safe_inv(L.pdy); piz = safe_inv(L.pdz);
+    clip_box(L.pox, L.poy, L.poz, pix, piy, piz, box_lo, box_hi, t0p, t1p, hitp);
+  }
+  const bool miss_resume_ok = shadow_miss && hitp && depth_ok;
+  const bool miss_resume_escape = shadow_miss && (!hitp || !depth_ok);
+  const bool done_inf = (in_cam && exited) || resume_escape || miss_resume_escape;
+  if (done_inf) {
+    L.Lx = L.Lx + fp[P_LINF];
+    L.Ly = L.Ly + fp[P_LINF + 1];
+    L.Lz = L.Lz + fp[P_LINF + 2];
+  }
+
+  if (done_inf || cam_abs) L.mode = DONE;
+  if (start_shadow_ok) L.mode = SHADOW;
+  if (resume_ok || miss_resume_ok) L.mode = CAM;
+
+  float t_new = L.t;
+  if (start_shadow_ok) {
+    L.ox = pcx; L.oy = pcy; L.oz = pcz;
+    L.dx = wix; L.dy = wiy; L.dz = wiz;
+    L.ix = fp[P_WI_INV]; L.iy = fp[P_WI_INV + 1]; L.iz = fp[P_WI_INV + 2];
+    t_new = t0n; L.t_exit = t1n;
+  }
+  if (resume_ok || miss_resume_ok) {
+    L.ox = L.pox; L.oy = L.poy; L.oz = L.poz;
+    L.dx = L.pdx; L.dy = L.pdy; L.dz = L.pdz;
+    L.ix = pix; L.iy = piy; L.iz = piz;
+    t_new = resume_ok ? t0n : t0p;
+    L.t_exit = resume_ok ? t1n : t1p;
+  }
+  const bool plain_adv = cam_null || zero_col || (in_shw && real_col && !shadow_finish);
+  if (plain_adv) t_new = t_cand;
+  if (fetch) t_new = t_next;
+
+  const bool new_ray = start_shadow_ok || resume_ok || miss_resume_ok;
+  if (fetch) { L.sig_seg = sig_seg_f; L.t_seg = t_seg_f; }
+  if (new_ray) { L.sig_seg = 0.f; L.t_seg = t_new; }
+  L.t = t_new;
+  L.T_ray = start_shadow_ok ? 1.f : T_new;
+  L.ctr = L.ctr + 1;
+}
+
+// A new lane from its pixel id alone: the jitter draw (renderer.py
+// render_rays_wave), the camera ray (models/camera.py generate_rays), and
+// integrator.init_state (world -> index, box clip; a ray that misses the box
+// is DONE with L = L_inf).
+__device__ __forceinline__ void camera_lane(Lane& L, uint32_t pid, const Args& a) {
+  const float* fp = a.p.f;
+  L.pid = pid;
+  L.strm = a.stream;
+  uint32_t r0 = pid, r1 = a.stream, r2 = JITTER_CTR, r3 = 0u;
+  pcg4d(r0, r1, r2, r3);
+  const float jx = u32_to_uniform(r0) * fp[P_JITTER], jy = u32_to_uniform(r1) * fp[P_JITTER];
+  const uint32_t width = (uint32_t)a.p.i[I_WIDTH];
+  const uint32_t py = pid / width, px = pid - py * width;
+  const float ptx = ((float)px + 0.5f) + jx, pty = ((float)py + 0.5f) + jy;
+  const float dx = ptx * fp[P_CAM_MX] + pty * fp[P_CAM_MY] + fp[P_CAM_T];
+  const float dy = ptx * fp[P_CAM_MX + 1] + pty * fp[P_CAM_MY + 1] + fp[P_CAM_T + 1];
+  const float dz = ptx * fp[P_CAM_MX + 2] + pty * fp[P_CAM_MY + 2] + fp[P_CAM_T + 2];
+  const float nrm = sqrtf(dx * dx + dy * dy + dz * dz);
+  set_direction(L, dx / nrm, dy / nrm, dz / nrm);
+  // grids/grid.py world_to_index
+  const float voxel = fp[P_VOXEL];
+  L.ox = (fp[P_CAM_POS] - fp[P_DOFF]) / voxel;
+  L.oy = (fp[P_CAM_POS + 1] - fp[P_DOFF + 1]) / voxel;
+  L.oz = (fp[P_CAM_POS + 2] - fp[P_DOFF + 2]) / voxel;
+  const float Ox = fp[P_ORIGIN], Oy = fp[P_ORIGIN + 1], Oz = fp[P_ORIGIN + 2];
+  const float lo[3] = {Ox, Oy, Oz};
+  const float hi[3] = {Ox + (float)a.p.i[I_X], Oy + (float)a.p.i[I_Y], Oz + (float)a.p.i[I_Z]};
+  float t0, t1;
+  bool hit;
+  clip_box(L.ox, L.oy, L.oz, L.ix, L.iy, L.iz, lo, hi, t0, t1, hit);
+  L.t = hit ? t0 : 0.f;
+  L.t_exit = hit ? t1 : 0.f;
+  L.sig_seg = 0.f;
+  L.t_seg = L.t;
+  L.Lx = hit ? 0.f : fp[P_LINF];
+  L.Ly = hit ? 0.f : fp[P_LINF + 1];
+  L.Lz = hit ? 0.f : fp[P_LINF + 2];
+  L.pox = L.ox; L.poy = L.oy; L.poz = L.oz;
+  L.pdx = L.dx; L.pdy = L.dy; L.pdz = L.dz;
+  L.T_ray = 1.f;
+  L.phase_val = 0.f;
+  L.depth = 0;
+  L.mode = hit ? CAM : DONE;
+  L.ctr = 0;
+}
+
+// film[pid] += (imaging_ratio * L, 1). A pixel id occurs once in a launch,
+// so no atomics. The product and the sum are rounded separately, as the
+// plain version's two tensor operations are.
+__device__ __forceinline__ void add_to_film(const Lane& L, const Args& a) {
+  const float ratio = a.p.f[P_IMG_RATIO];
+  float4 f = a.film[L.pid];
+  f.x = __fadd_rn(f.x, __fmul_rn(ratio, L.Lx));
+  f.y = __fadd_rn(f.y, __fmul_rn(ratio, L.Ly));
+  f.z = __fadd_rn(f.z, __fmul_rn(ratio, L.Lz));
+  f.w = f.w + 1.f;
+  a.film[L.pid] = f;
+}
+
+__device__ __forceinline__ void load_lane(Lane& L, int q, const Args& a) {
+  const float* sf = a.sf;
+  const int* si = a.si;
+  const size_t n = (size_t)a.n;
+  L.ox = sf[0 * n + q]; L.oy = sf[1 * n + q]; L.oz = sf[2 * n + q];
+  set_direction(L, sf[3 * n + q], sf[4 * n + q], sf[5 * n + q]);
+  L.t = sf[6 * n + q]; L.t_exit = sf[7 * n + q];
+  L.sig_seg = sf[8 * n + q]; L.t_seg = sf[9 * n + q];
+  L.Lx = sf[10 * n + q]; L.Ly = sf[11 * n + q]; L.Lz = sf[12 * n + q];
+  L.pox = sf[13 * n + q]; L.poy = sf[14 * n + q]; L.poz = sf[15 * n + q];
+  L.pdx = sf[16 * n + q]; L.pdy = sf[17 * n + q]; L.pdz = sf[18 * n + q];
+  L.T_ray = sf[19 * n + q]; L.phase_val = sf[20 * n + q];
+  L.depth = si[0 * n + q]; L.mode = si[1 * n + q]; L.ctr = si[2 * n + q];
+  L.pid = (uint32_t)a.pids[q];
+  L.strm = (uint32_t)a.streams[q];
+}
+
+__device__ __forceinline__ void store_lane(const Lane& L, int q, const Args& a) {
+  float* sf = a.sf;
+  int* si = a.si;
+  const size_t n = (size_t)a.n;
+  sf[0 * n + q] = L.ox; sf[1 * n + q] = L.oy; sf[2 * n + q] = L.oz;
+  sf[3 * n + q] = L.dx; sf[4 * n + q] = L.dy; sf[5 * n + q] = L.dz;
+  sf[6 * n + q] = L.t; sf[7 * n + q] = L.t_exit;
+  sf[8 * n + q] = L.sig_seg; sf[9 * n + q] = L.t_seg;
+  sf[10 * n + q] = L.Lx; sf[11 * n + q] = L.Ly; sf[12 * n + q] = L.Lz;
+  sf[13 * n + q] = L.pox; sf[14 * n + q] = L.poy; sf[15 * n + q] = L.poz;
+  sf[16 * n + q] = L.pdx; sf[17 * n + q] = L.pdy; sf[18 * n + q] = L.pdz;
+  sf[19 * n + q] = L.T_ray; sf[20 * n + q] = L.phase_val;
+  si[0 * n + q] = L.depth; si[1 * n + q] = L.mode; si[2 * n + q] = L.ctr;
+}
+
+__device__ __forceinline__ unsigned long long global_timer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The warp loop of both kernels. kWave: lanes are born from pixel ids and
+// end in the film (render_wave_kernel); otherwise they are loaded from and
+// stored to the SoA state at their queue index (trace_lanes_kernel). A lane
+// runs until it is DONE or has taken a.max_steps steps in this launch.
+template <bool kWave, bool kTap>
+__device__ __forceinline__ void warp_loop(const Args& a) {
+  const unsigned lane_id = threadIdx.x & 31u;
+  const unsigned below = (1u << lane_id) - 1u;
+  Lane L;
+  L.mode = DONE;
+  int q = 0, steps_left = 0;
+  bool idle = true, drained = false;
+  int capped = 0, max_ctr = 0;
+  unsigned long long warp_steps = 0, t_first = 0;
+  unsigned busy_steps = 0;
+  if (kTap) t_first = global_timer();
+
+  for (;;) {
+    // ---- refill, at a convergent point ----
+    const unsigned idle_mask = __ballot_sync(FULL, idle);
+    const int n_idle = __popc(idle_mask);
+    if (!drained && n_idle >= REFILL_MIN) {
+      int base = 0;
+      if (lane_id == 0) base = atomicAdd(a.scratch, n_idle);
+      base = __shfl_sync(FULL, base, 0);
+      drained = base >= a.n - n_idle;
+      const int mine = base + __popc(idle_mask & below);
+      if (idle && mine < a.n) {
+        q = mine;
+        steps_left = a.max_steps;
+        if (kWave) {
+          camera_lane(L, (uint32_t)(a.pids != nullptr ? a.pids[q] : a.start + q), a);
+        } else {
+          load_lane(L, q, a);
+        }
+        idle = L.mode == DONE || steps_left <= 0;
+        // A lane that is DONE at birth (its ray misses the box) still owes
+        // the film its sample; a loaded state that takes no step is left
+        // as it is.
+        if (kWave && idle) {
+          add_to_film(L, a);
+          capped += L.mode != DONE;
+        }
+      }
+    }
+    if (__all_sync(FULL, idle)) {
+      if (drained) break;
+      continue;
+    }
+
+    // ---- one step of every lane the warp carries ----
+    if (!idle) {
+      lane_step<kTap>(L, a);
+      --steps_left;
+      if (L.mode == DONE || steps_left == 0) {
+        if (kWave) {
+          // A lane stopped by the cap adds what it gathered and no infinite
+          // light (integrator.finalize_radiance).
+          add_to_film(L, a);
+          capped += L.mode != DONE;
+          max_ctr = max(max_ctr, L.ctr);
+        } else {
+          store_lane(L, q, a);
+        }
+        idle = true;
+      }
+      if (kTap) ++busy_steps;
+    }
+    if (kTap) ++warp_steps;
+  }
+
+  if (kWave) {
+    capped = __reduce_add_sync(FULL, capped);
+    max_ctr = __reduce_max_sync(FULL, max_ctr);
+    if (lane_id == 0) {
+      if (capped) atomicAdd(a.scratch + 1, capped);
+      if (max_ctr) atomicMax(a.scratch + 2, max_ctr);
+    }
+  }
+  if (kTap) {
+    busy_steps = __reduce_add_sync(FULL, busy_steps);
+    if (lane_id == 0 && a.stat != nullptr) {
+      atomicAdd(a.stat, warp_steps);
+      atomicAdd(a.stat + 1, (unsigned long long)busy_steps);
+      const size_t warp = ((size_t)blockIdx.x * THREADS + threadIdx.x) / 32;
+      a.stat[2 + 2 * warp] = t_first;
+      a.stat[3 + 2 * warp] = global_timer();
+    }
+  }
+}
+
+template <bool kTap>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) render_wave_kernel(const Args a) {
+  warp_loop<true, kTap>(a);
+}
+
+template <bool kTap>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) trace_lanes_kernel(const Args a) {
+  warp_loop<false, kTap>(a);
+}
+
+using Kernel = void (*)(const Args);
+
+Kernel pick_kernel(bool wave, bool tap) {
+  if (wave) return tap ? render_wave_kernel<true> : render_wave_kernel<false>;
+  return tap ? trace_lanes_kernel<true> : trace_lanes_kernel<false>;
+}
+
+// Blocks the device holds resident for `kernel` (resident blocks per SM
+// times the SM count, both asked of the runtime and kept per device).
+cudaError_t resident_blocks(bool wave, bool tap, int device, int* blocks) {
+  static int resident[MAX_DEVICES][2][2];
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int& kept = resident[device][wave][tap];
+  if (kept == 0) {
+    int per_sm = 0, sms = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_kernel(wave, tap), THREADS, 0);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (per_sm * sms <= 0) return cudaErrorLaunchOutOfResources;
+    kept = per_sm * sms;
+  }
+  *blocks = kept;
+  return cudaSuccess;
+}
+
+int launch(bool wave, int device, void* stream, const Args& a) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  err = cudaMemsetAsync(a.scratch, 0, 3 * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n <= 0) return 0;
+  const bool tap = a.tap != nullptr;
+  int blocks = 0;
+  err = resident_blocks(wave, tap, device, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  const int per_block = THREADS * QUEUE_PER_THREAD;
+  const int wanted = (int)(((long long)a.n + per_block - 1) / per_block);
+  if (wanted < blocks) blocks = wanted;
+  pick_kernel(wave, tap)<<<blocks, THREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+void set_tables(Args& a, const float* rows, int n_rows, int row_w, const float* trows, int n_trows,
+                const float* bb_pairs, const float* fp, const int* ip, int* scratch,
+                unsigned char* tap, unsigned long long* stat) {
+  a.rows = rows; a.n_rows = n_rows; a.row_w = row_w;
+  a.trows = trows; a.n_trows = n_trows; a.bb_pairs = bb_pairs;
+  a.scratch = scratch; a.tap = tap; a.stat = stat;
+  for (int k = 0; k < NUM_FPARAMS; ++k) a.p.f[k] = fp[k];
+  for (int k = 0; k < NUM_IPARAMS; ++k) a.p.i[k] = ip[k];
 }
 
 }  // namespace
@@ -442,29 +738,56 @@ extern "C" {
 int vpt_num_fparams() { return NUM_FPARAMS; }
 int vpt_num_iparams() { return NUM_IPARAMS; }
 
-// Advance every lane until DONE or max_steps steps, in place on (sf, si).
-// sf: [21, n] float32, si: [3, n] int32 (SoA), pids / streams: [n] int32
-// (uint32 bits). rows: [n_rows, row_w] float32 (row_w 8 or 16), trows:
-// [n_trows, 8] or null, bb_pairs: [npairs, 6] or null, tap: null, or
-// [n_rows + n_trows] bytes that the launch sets to 1 for every row it reads.
-// Launches on `stream` and returns cudaGetLastError() (0 on success); does
-// not synchronise.
+// The two launches below run on `stream`, do not synchronise, and return a
+// cudaError_t (0 on success). fp / ip are HOST arrays in the FParam / IParam
+// layout; they travel in the kernel's arguments. rows: [n_rows, row_w]
+// float32 (row_w 8 or 16), trows: [n_trows, 8] or null, bb_pairs:
+// [npairs, 6] or null, scratch: 3 ints on the device, zeroed here on the
+// stream. tap: null, or given for the measuring instantiation, and then
+// stat may be given too (see Args).
+
+// Advance every lane of (sf [21, n] float32, si [3, n] int32, SoA) until
+// DONE or max_steps steps, in place. pids / streams: [n] int32 (uint32 bits).
 int vpt_trace_lanes(int device, void* stream, float* sf, int* si, const int* pids, const int* streams,
-                    int n, int max_steps, const float* rows, long long n_rows, int row_w,
-                    const float* trows, long long n_trows, const float* bb_pairs,
-                    const float* fp, const int* ip, unsigned char* tap) {
+                    int n, int max_steps, const float* rows, int n_rows, int row_w,
+                    const float* trows, int n_trows, const float* bb_pairs,
+                    const float* fp, const int* ip, int* scratch,
+                    unsigned char* tap, unsigned long long* stat) {
+  Args a{};
+  a.sf = sf; a.si = si; a.pids = pids; a.streams = streams;
+  a.n = n; a.max_steps = max_steps;
+  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, fp, ip, scratch, tap, stat);
+  return launch(false, device, stream, a);
+}
+
+// One sample for each of n pixels, added to film [H * W, 4] float32 in
+// place: pixel ids pids[0..n), or start .. start + n - 1 where pids is null.
+// A pixel id may occur once. After the launch scratch[1] holds the lanes
+// stopped by the max_steps cap and scratch[2] the largest lane counter.
+int vpt_render_wave(int device, void* stream, float* film, const int* pids, int start, int n,
+                    unsigned int stream_word, int max_steps,
+                    const float* rows, int n_rows, int row_w,
+                    const float* trows, int n_trows, const float* bb_pairs,
+                    const float* fp, const int* ip, int* scratch,
+                    unsigned char* tap, unsigned long long* stat) {
+  Args a{};
+  a.film = reinterpret_cast<float4*>(film); a.pids = pids; a.start = start;
+  a.n = n; a.max_steps = max_steps; a.stream = stream_word;
+  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, fp, ip, scratch, tap, stat);
+  return launch(true, device, stream, a);
+}
+
+// Resident blocks of the two production kernels on `device` (see
+// resident_blocks), THREADS, and the device's SM count.
+int vpt_occupancy(int device, int* wave_blocks, int* trace_blocks, int* threads, int* sms) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n <= 0) return 0;
-  const int blocks = (n + THREADS - 1) / THREADS;
-  if (tap != nullptr) {
-    trace_lanes_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        sf, si, pids, streams, n, max_steps, rows, n_rows, row_w, trows, n_trows, bb_pairs, fp, ip, tap);
-  } else {
-    trace_lanes_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        sf, si, pids, streams, n, max_steps, rows, n_rows, row_w, trows, n_trows, bb_pairs, fp, ip, tap);
-  }
-  return (int)cudaGetLastError();
+  *threads = THREADS;
+  err = resident_blocks(true, false, device, wave_blocks);
+  if (err != cudaSuccess) return (int)err;
+  err = resident_blocks(false, false, device, trace_blocks);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
 const char* vpt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -18,7 +18,10 @@ with per-lane modes making the loop a state machine:
 This module is the CPU path and the reference the CUDA kernel
 (render/megakernel.py, csrc/trace_lanes.cu) is held against: make_step is
 the one plain step of the port. Expressions keep the JAX package's
-operation order. `wscore` (the score-function factor of the gradient path)
+operation order, with one exception shared with the kernel: the quotients
+by the segment's majorant go through one reciprocal, and the quotient by the
+voxel size through its float32 reciprocal (last-bit differences from the
+JAX step, which the tests' tolerances cover). `wscore` (the score-function factor of the gradient path)
 is carried and stays exactly 1.0 in a forward render.
 
 Draws are keyed on each lane's own counter `ctr` (== the global iteration,
@@ -30,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..grids.grid import corner_row_index, dot8, sample_trilinear_local, sample_trilinear_rows, trilinear_weights
@@ -158,6 +162,13 @@ def _cell_exit_t(o, d, cell_lo, cell_hi):
     return torch.maximum(ta, tb).amin(dim=-1)
 
 
+def inv_voxel(voxel_size: float) -> float:
+    """1 / voxel_size rounded to float32, the factor both the plain step and
+    the CUDA kernel multiply by (a division is the longest link of the
+    kernel's per-step chain)."""
+    return float(np.float32(1.0) / np.float32(voxel_size))
+
+
 class TravOut(NamedTuple):
     """Per-iteration traversal results. All fields are [N] or [N, 3]."""
 
@@ -167,7 +178,7 @@ class TravOut(NamedTuple):
     t_next: torch.Tensor  # next segment start for crossing lanes
     p_col: torch.Tensor  # [N,3] gather point (collision or lookahead)
     rho: torch.Tensor  # trilinear density at p_col (collide lanes)
-    sig: torch.Tensor  # max(sig_seg, TINY)
+    rsig: torch.Tensor  # 1 / max(sig_seg, TINY): one reciprocal for the step's quotients
     sigma_maj: torch.Tensor  # current segment's majorant sigma (raw)
     sig_seg_f: torch.Tensor  # freshly derived segment majorant (fetch lanes)
     t_seg_f: torch.Tensor  # freshly derived segment end (fetch lanes)
@@ -187,6 +198,7 @@ def make_traversal(medium: Medium, params: IntegratorParams):
     dev = dgrid.device
     O = _f32(dgrid.origin_ijk, dev)
     voxel = dgrid.voxel_size
+    voxel_inv = inv_voxel(voxel)
     sigma_t = params.sigma_t
 
     maj_rows = medium.majorants.rows
@@ -195,9 +207,9 @@ def make_traversal(medium: Medium, params: IntegratorParams):
 
     def traverse(o, d, t, t_exit, sig_seg, t_seg, active, u0) -> TravOut:
         has_seg = t_seg > t
-        sig = torch.clamp(sig_seg, min=_TINY)
-        dt_w = vrng.sample_exponential(u0, sig)
-        t_cand = t + dt_w / voxel
+        rsig = 1.0 / torch.clamp(sig_seg, min=_TINY)
+        dt_w = -torch.log1p(-u0) * rsig  # vrng.sample_exponential, through the reciprocal
+        t_cand = t + dt_w * voxel_inv
         collide = active & has_seg & (sig_seg > 0.0) & (t_cand < t_seg)
 
         cross = active & (~collide)
@@ -248,7 +260,7 @@ def make_traversal(medium: Medium, params: IntegratorParams):
         rho_pos = rho > 0.0
         return TravOut(
             exited=exited, fetch=fetch, t_cand=t_cand, t_next=t_next,
-            p_col=p_col, rho=rho, sig=sig, sigma_maj=sig_seg,
+            p_col=p_col, rho=rho, rsig=rsig, sigma_maj=sig_seg,
             sig_seg_f=sig_seg_f, t_seg_f=t_seg_f, real_col=collide & rho_pos,
             zero_col=collide & (~rho_pos), temp_adim=temp_adim,
         )
@@ -312,13 +324,13 @@ def make_step(medium: Medium, params: IntegratorParams, bb_table: Optional[torch
         tr = traverse(st.o, st.d, st.t, st.t_exit, st.sig_seg, st.t_seg, active, u[:, 0])
         exited, fetch = tr.exited, tr.fetch
         t_cand, t_next, p_col = tr.t_cand, tr.t_next, tr.p_col
-        rho, sig, sigma_maj = tr.rho, tr.sig, tr.sigma_maj
+        rho, rsig, sigma_maj = tr.rho, tr.rsig, tr.sigma_maj
         real_col, zero_col = tr.real_col, tr.zero_col
 
         # ---- camera-mode collisions ----
         cam_col = in_cam & real_col
-        p_a = sigma_a * rho / sig
-        p_s = sigma_s * rho / sig
+        p_a = sigma_a * rho * rsig
+        p_s = sigma_s * rho * rsig
         p_n = torch.clamp(1.0 - p_a - p_s, min=0.0)
 
         L_new = st.L
@@ -347,7 +359,7 @@ def make_step(medium: Medium, params: IntegratorParams, bb_table: Optional[torch
         # ---- shadow-mode collisions (ratio tracking + Russian roulette) ----
         shw_col = in_shw & real_col
         sigma_n = torch.clamp(sigma_maj - sigma_t * rho, min=0.0)
-        T_after = st.T_ray * (sigma_n / sig)
+        T_after = st.T_ray * (sigma_n * rsig)
         rr = T_after <= 0.05
         # u1 is shared: camera lanes draw the event, shadow lanes the roulette.
         rr_kill = rr & (u[:, 1] < 0.75)

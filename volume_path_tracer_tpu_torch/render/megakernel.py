@@ -1,50 +1,64 @@
-"""The forward tracer's lane loop: a CUDA kernel for Hopper and its plain twin.
+"""The forward tracer's lane loop: CUDA kernels for Hopper and their plain twins.
 
 Replaces the JAX package's Pallas megakernel (volume_path_tracer_tpu/render/
 megakernel.py: the event-step kernel of make_kernel, launched by
 _pallas_step_call from trace_rays_fused) together with its XLA prestep
-(make_prestep / fetch_rows). The kernel, csrc/trace_lanes.cu, carries each
-lane through draws, free flight, the fused-row gather, the trilinear dot,
-blackbody emission and the event step, for up to `max_steps` steps, with
-its state in registers. Its notes say what bounds it and what the
-persistent-lane design costs.
+(make_prestep / fetch_rows). csrc/trace_lanes.cu holds one step function and
+one warp loop (persistent warps that refill retired lanes from a queue) and
+two kernels around them; its notes say what bounds them on the card.
 
-  trace_lanes        the wrapper: on CUDA tensors it launches the kernel (or
-                     raises); on CPU tensors it runs the plain version.
-  trace_lanes_plain  the plain version: the port's one plain loop
+  render_wave        the renderer's wave: one launch makes each pixel's
+                     camera ray, traces it and adds its sample to the film.
+                     On CUDA tensors it launches render_wave_kernel (or
+                     raises); on CPU tensors it runs render_wave_plain.
+  render_wave_plain  its plain version: counter_uniforms -> generate_rays ->
+                     init_state -> advance_lanes -> film add.
+  trace_lanes        state in, state out, for arbitrary ray batches and for
+                     max_steps = 1 (the one-step check): trace_lanes_kernel
+                     on CUDA tensors, trace_lanes_plain on CPU tensors.
+  trace_lanes_plain  its plain version: the port's one plain loop
                      (integrator.advance_lanes over make_step).
-  trace_rays_fused   the production forward tracer, same contract as
-                     integrator.trace_rays: one launch with
-                     max_steps = params.max_iters.
+  trace_rays_fused   a ray batch through trace_lanes, same contract as
+                     integrator.trace_rays.
 
-LAUNCHES and PLAIN_LAUNCHES count the launches of each, so a run can show
-which one its main path went through.
+WAVE_LAUNCHES, LAUNCHES, PLAIN_WAVE_LAUNCHES and PLAIN_LAUNCHES count the
+launches of each, so a run can show which one its main path went through.
 
-The kernel is compiled with nvcc at first use, from the checkout's own
+The kernels are compiled with nvcc at first use, from the checkout's own
 source, into volume_path_tracer_tpu_torch/_build/ (one library per source
 content), and loaded with ctypes: a plain C interface, no PyTorch headers.
+What a scene gives the kernels (the parameter arrays, the blackbody pairs,
+the launch scratch) is made once per (medium, params, camera) and kept
+(kernel_constants).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import subprocess
-from typing import Optional, Tuple
+import weakref
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..models.camera import Camera
 from ..models.medium import Medium
 from ..ops.phase import INV_4PI
+from ..utils import rng as vrng
 from ..utils.spectral import RESOLUTION, blackbody_pairs
 from .integrator import (
     DONE,
     IntegratorParams,
     RayState,
+    _safe_inv,
     advance_lanes,
+    count_capped,
     emission_enabled,
     init_state,
+    inv_voxel,
     lane_streams,
     light_constants,
     make_step,
@@ -58,7 +72,12 @@ STATE_F32 = (
 )
 STATE_I32 = ("depth", "mode", "ctr")
 
-LAUNCHES = 0  # kernel launches (trace_lanes on CUDA tensors)
+# Jitter draws use a counter no tracing step reaches.
+JITTER_COUNTER = 2**31 - 1
+
+WAVE_LAUNCHES = 0  # render_wave_kernel launches (render_wave on CUDA tensors)
+LAUNCHES = 0  # trace_lanes_kernel launches (trace_lanes on CUDA tensors)
+PLAIN_WAVE_LAUNCHES = 0  # plain-version runs (render_wave_plain)
 PLAIN_LAUNCHES = 0  # plain-version runs (trace_lanes_plain)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,7 +145,54 @@ def trace_lanes_plain(
     return pack_state(st)
 
 
-# --------------------------------------------------------------- kernel ----
+
+
+Pixels = Union[range, torch.Tensor]
+
+
+def _pixel_ids(pixels: Pixels, device) -> torch.Tensor:
+    if isinstance(pixels, range):
+        if pixels.step != 1:
+            raise ValueError("a pixel range must be contiguous")
+        return torch.arange(pixels.start, pixels.stop, dtype=torch.int32, device=device)
+    return pixels
+
+
+def render_wave_plain(
+    medium: Medium, params: IntegratorParams, camera: Camera, bb_table: Optional[torch.Tensor],
+    film: torch.Tensor, pixels: Pixels, stream: int, use_jitter: bool, imaging_ratio: float,
+    max_iters: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """render_wave's plain version, by the port's plain functions:
+    counter_uniforms (the jitter) -> Camera.generate_rays -> init_state ->
+    advance_lanes -> film[pid] += (imaging_ratio * L, 1). Same contract."""
+    global PLAIN_WAVE_LAUNCHES
+    PLAIN_WAVE_LAUNCHES += 1
+    if max_iters is not None:
+        params = dataclasses.replace(params, max_iters=max_iters)
+    dev = film.device
+    width = film.shape[1]
+    pids = _pixel_ids(pixels, dev)
+    n = pids.shape[0]
+    raster = torch.stack([pids % width, pids // width], dim=-1)
+    u_jit = vrng.counter_uniforms(pids, stream, JITTER_COUNTER, 2)
+    jitter = u_jit * (0.5 if use_jitter else 0.0)  # half-pixel jitter quirk
+    o_w, d_w = camera.generate_rays(raster, jitter)
+    st = advance_lanes(make_step(medium, params, bb_table), init_state(medium, o_w, d_w, params),
+                       pids, lane_streams(stream, n, dev), params.max_iters)
+    contrib = torch.cat(
+        [imaging_ratio * st.L, torch.ones((n, 1), dtype=torch.float32, device=dev)], dim=-1
+    )
+    flat = film.view(-1, 4)
+    if isinstance(pixels, range):
+        flat[pixels.start:pixels.stop] += contrib
+    else:
+        flat[pids.to(torch.int64)] += contrib
+    iters = st.ctr.max() if n else torch.zeros((), dtype=torch.int32, device=dev)
+    return iters, count_capped(st)
+
+
+# -------------------------------------------------------------- kernels ----
 
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
@@ -162,43 +228,160 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.vpt_trace_lanes.argtypes = [i, p, p, p, p, p, i, i, p, ll, i, p, ll, p, p, p, p]
-        lib.vpt_trace_lanes.restype = i
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        tables = [p, i, i, p, i, p, p, p, p, p, p]  # rows .. stat
+        lib.vpt_trace_lanes.argtypes = [i, p, p, p, p, p, i, i, *tables]
+        lib.vpt_render_wave.argtypes = [i, p, p, p, i, i, u, i, *tables]
+        lib.vpt_occupancy.argtypes = [i, p, p, p, p]
+        for fn in (lib.vpt_trace_lanes, lib.vpt_render_wave, lib.vpt_occupancy,
+                   lib.vpt_num_fparams, lib.vpt_num_iparams):
+            fn.restype = i
         lib.vpt_error_string.argtypes = [i]
         lib.vpt_error_string.restype = ctypes.c_char_p
-        lib.vpt_num_fparams.restype = i
-        lib.vpt_num_iparams.restype = i
         _lib = lib
     return _lib
 
 
-def _kernel_params(medium: Medium, params: IntegratorParams, n_pairs: int, emission: int):
-    """(fp float32, ip int32) host arrays in the kernel's FParam / IParam order."""
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} failed: {_library().vpt_error_string(err).decode()}")
+
+
+def occupancy(device: torch.device):
+    """(resident blocks of render_wave_kernel, of trace_lanes_kernel, threads
+    per block, SM count) on `device`, as the CUDA runtime computes them. A
+    launch starts at most the resident blocks."""
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = _library().vpt_occupancy(device.index or 0, *(ctypes.byref(v) for v in out))
+    _raise_on(err, "occupancy query")
+    return tuple(v.value for v in out)
+
+
+def _param_fields(medium: Medium, params: IntegratorParams, n_pairs: int, emission: int,
+                  camera: Optional[Camera], width: int, use_jitter: bool, imaging_ratio: float):
+    """The kernel's parameters as ([(name, values)], [(name, values)]) in the
+    order of csrc/trace_lanes.cu's enum FParam / enum IParam; a name with
+    three values is a vector whose later slots the kernel reads as name + 1,
+    name + 2. The camera fields are zero where there is no camera
+    (trace_lanes reads none of them)."""
     dg, tg = medium.density, medium.temperature
     g = params.hg_g
-    wi, Li, L_inf = (v.numpy() for v in light_constants(params))
-    nbb = n_pairs + 1
-    fp = [
-        dg.voxel_size, params.sigma_a, params.sigma_s, params.sigma_t, g,
-        params.super_tau, params.le_scale, params.temperature_scale,
-        params.temperature_offset,
-        1.0 + g * g, 2.0 * g, INV_4PI * (1.0 - g * g),
-        *wi, *Li, *L_inf, *dg.world_offset,
-        *(tg.world_offset if tg is not None else (0.0, 0.0, 0.0)),
-        tg.voxel_size if tg is not None else 1.0,
-        (nbb - 1) * RESOLUTION - 1e-3,
-        *dg.origin_ijk,
-        *(tg.origin_ijk if tg is not None else (0, 0, 0)),
-        RESOLUTION,
+    wi, Li, L_inf = light_constants(params)
+    zero3 = (0.0, 0.0, 0.0)
+    if camera is not None:
+        cam_pos = camera.position.cpu().numpy()
+        cam_m = camera.raster_to_world_dir.cpu().numpy()
+        cam_t = camera.raster_to_world_trans.cpu().numpy()
+    else:
+        cam_pos, cam_m, cam_t = np.zeros(3), np.zeros((3, 3)), np.zeros(3)
+    fields_f = [
+        ("P_VOXEL", dg.voxel_size), ("P_INV_VOXEL", inv_voxel(dg.voxel_size)), ("P_SIGMA_A", params.sigma_a), ("P_SIGMA_S", params.sigma_s),
+        ("P_SIGMA_T", params.sigma_t), ("P_G", g), ("P_SUPER_TAU", params.super_tau),
+        ("P_LE_SCALE", params.le_scale), ("P_T_SCALE", params.temperature_scale),
+        ("P_T_OFFSET", params.temperature_offset),
+        ("P_HG_DEN0", 1.0 + g * g), ("P_HG_C1", 2.0 * g), ("P_HG_NUM", INV_4PI * (1.0 - g * g)),
+        ("P_WI", wi.numpy()), ("P_WI_INV", _safe_inv(wi).numpy()),
+        ("P_LI", Li.numpy()), ("P_LINF", L_inf.numpy()),
+        ("P_DOFF", dg.world_offset), ("P_TOFF", tg.world_offset if tg is not None else zero3),
+        ("P_TVOXEL", tg.voxel_size if tg is not None else 1.0),
+        ("P_TC_MAX", n_pairs * RESOLUTION - 1e-3),
+        ("P_ORIGIN", dg.origin_ijk), ("P_TORIGIN", tg.origin_ijk if tg is not None else zero3),
+        ("P_BB_RES", RESOLUTION),
+        ("P_CAM_POS", cam_pos), ("P_CAM_MX", cam_m[:, 0]), ("P_CAM_MY", cam_m[:, 1]),
+        ("P_CAM_T", cam_t), ("P_IMG_RATIO", imaging_ratio),
+        ("P_JITTER", 0.5 if use_jitter else 0.0),  # half-pixel jitter quirk
     ]
-    BX, BY, BZ = medium.majorants.brick_maj.shape
-    ip = [
-        *dg.shape, BX, BY, BZ, min(int(params.max_depth), 2**31 - 1),
-        int(params.nee_enabled), emission,
-        *(tg.shape if tg is not None else (0, 0, 0)), max(n_pairs, 1),
+    bx, by, bz = medium.majorants.brick_maj.shape
+    tshape = tg.shape if tg is not None else (0, 0, 0)
+    fields_i = [
+        ("I_X", dg.shape[0]), ("I_Y", dg.shape[1]), ("I_Z", dg.shape[2]),
+        ("I_BX", bx), ("I_BY", by), ("I_BZ", bz),
+        ("I_MAX_DEPTH", min(int(params.max_depth), 2**31 - 1)),
+        ("I_NEE", int(params.nee_enabled)), ("I_EMISSION", emission),
+        ("I_TX", tshape[0]), ("I_TY", tshape[1]), ("I_TZ", tshape[2]),
+        ("I_NPAIRS", max(n_pairs, 1)), ("I_WIDTH", max(int(width), 1)),
     ]
-    return np.asarray(fp, np.float32), np.asarray(ip, np.int32)
+    return fields_f, fields_i
+
+
+def param_layout(fields):
+    """({name: offset}, total length) of a _param_fields list."""
+    offsets, at = {}, 0
+    for name, values in fields:
+        offsets[name] = at
+        at += np.size(values)
+    return offsets, at
+
+
+def _flatten(fields, dtype) -> np.ndarray:
+    return np.concatenate([np.atleast_1d(np.asarray(v, dtype=dtype)) for _, v in fields])
+
+
+class KernelConstants(NamedTuple):
+    """What one scene gives every launch: the host parameter arrays (they
+    travel in the kernel's arguments) and the device tensors that no launch
+    changes or that each launch zeroes itself."""
+
+    fp: np.ndarray  # float32, enum FParam order
+    ip: np.ndarray  # int32, enum IParam order
+    pairs: Optional[torch.Tensor]  # blackbody pair LUT [npairs, 6], emissive media
+    scratch: torch.Tensor  # int32 [3]: queue head, n_capped, largest lane counter
+    emission: int
+
+
+# key -> (weak references to the keyed objects, KernelConstants)
+_CONSTANTS = {}
+
+
+def kernel_constants(
+    medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
+    camera: Optional[Camera] = None, width: int = 0, use_jitter: bool = False,
+    imaging_ratio: float = 0.0,
+) -> KernelConstants:
+    """The constants of (medium, params, bb_table, camera, ...), built and
+    checked at first use and kept while the medium lives. An entry is found
+    by its objects' ids and taken only if those ids still name the same live
+    objects, so a new Scene's medium, camera or table never meets another's
+    constants. Launches that share an entry share its scratch: they run on
+    one stream."""
+    objs = (medium, bb_table, camera)
+    key = (*(id(o) for o in objs), params, int(width), bool(use_jitter), float(imaging_ratio))
+    hit = _CONSTANTS.get(key)
+    if hit is not None and all(r is None if o is None else r() is o for r, o in zip(hit[0], objs)):
+        return hit[1]
+
+    dev = medium.device
+    rows = medium.density_rows
+    if rows is None:
+        raise ValueError(
+            "the CUDA tracer needs the fused row table: build the medium "
+            "with Medium.from_grids(..., pack=True)"
+        )
+    if rows.dtype != torch.float32 or not rows.is_contiguous() or rows.shape[1] not in (8, 16) \
+            or rows.data_ptr() % 16 or rows.shape[0] >= 2**31:
+        raise ValueError("density_rows must be a contiguous, 16-byte aligned "
+                         "float32 [R < 2^31, 8 or 16] table")
+    emission, pairs = 0, None
+    if emission_enabled(medium, params):
+        if bb_table is None:
+            raise ValueError("an emissive medium needs the blackbody table")
+        pairs = blackbody_pairs(torch.as_tensor(bb_table, dtype=torch.float32, device=dev)).contiguous()
+        emission = 1 if rows.shape[1] >= 16 else 2
+        trows = medium.temperature_rows
+        if emission == 2 and (trows is None or trows.device != dev or not trows.is_contiguous()
+                              or trows.data_ptr() % 16 or trows.shape[0] >= 2**31):
+            raise ValueError("an 8-wide emissive medium needs its temperature "
+                             f"corner rows as a contiguous table on {dev}")
+    n_pairs = pairs.shape[0] if pairs is not None else 0
+    fields_f, fields_i = _param_fields(medium, params, n_pairs, emission, camera, width,
+                                       use_jitter, imaging_ratio)
+    consts = KernelConstants(
+        fp=_flatten(fields_f, np.float32), ip=_flatten(fields_i, np.int32), pairs=pairs,
+        scratch=torch.zeros(3, dtype=torch.int32, device=dev), emission=emission,
+    )
+    _CONSTANTS[key] = (tuple(None if o is None else weakref.ref(o) for o in objs), consts)
+    weakref.finalize(medium, _CONSTANTS.pop, key, None)
+    return consts
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -211,19 +394,48 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _table_args(medium: Medium, consts: KernelConstants, dev, row_tap, stat):
+    """The arguments both launches end with (rows .. stat), checked."""
+    lib = _library()
+    if consts.fp.size != lib.vpt_num_fparams() or consts.ip.size != lib.vpt_num_iparams():
+        raise RuntimeError("kernel parameter layout mismatch with csrc/trace_lanes.cu")
+    rows = medium.density_rows
+    trows = medium.temperature_rows if consts.emission == 2 else None
+    if rows.device != dev:
+        raise ValueError(f"the medium lives on {rows.device}, the lanes on {dev}")
+    n_trows = trows.shape[0] if trows is not None else 0
+    if stat is not None and row_tap is None:
+        raise ValueError("stat is filled by the measuring launch: pass row_tap too")
+    if row_tap is not None:
+        _check(row_tap, "row_tap", torch.uint8, (rows.shape[0] + n_trows,), dev)
+    if stat is not None:
+        _check(stat, "stat", torch.int64, (stat_size(dev),), dev)
+    return (rows.data_ptr(), rows.shape[0], rows.shape[1], _ptr(trows), n_trows,
+            _ptr(consts.pairs), consts.fp.ctypes.data, consts.ip.ctypes.data,
+            consts.scratch.data_ptr(), _ptr(row_tap), _ptr(stat))
+
+
 def trace_lanes(
     medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
     sf: torch.Tensor, si: torch.Tensor, pixel_ids: torch.Tensor, streams: torch.Tensor,
     max_steps: int, row_tap: Optional[torch.Tensor] = None,
+    stat: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Advance every lane until DONE or `max_steps` steps; returns new (sf, si).
 
     sf [21, N] float32 and si [3, N] int32 are the SoA state (STATE_F32,
     STATE_I32), pixel_ids and streams [N] integer (uint32 values). On CUDA
-    tensors this launches csrc/trace_lanes.cu once, or raises; on CPU
-    tensors it runs trace_lanes_plain. row_tap (CUDA only, for measurement):
-    a zeroed uint8 [R + R_t] tensor in which the kernel marks every row of
-    density_rows (then of temperature_rows, if read) that it reads.
+    tensors this launches trace_lanes_kernel once, or raises; on CPU tensors
+    it runs trace_lanes_plain. The kernel works in place; the state is
+    cloned first only because this contract returns new tensors and leaves
+    its arguments as they were. For measurement (CUDA only): row_tap, a
+    zeroed uint8 [R + R_t] tensor in which the launch marks every row of
+    density_rows (then of temperature_rows, if read) that it reads, and with
+    it stat, a zeroed launch_stat tensor.
     """
     if sf.device.type == "cpu":
         return trace_lanes_plain(medium, params, bb_table, sf, si, pixel_ids, streams, max_steps)
@@ -233,63 +445,142 @@ def trace_lanes(
     n = sf.shape[1]
     _check(sf, "sf", torch.float32, (len(STATE_F32), n), dev)
     _check(si, "si", torch.int32, (len(STATE_I32), n), dev)
-    rows = medium.density_rows
-    if rows is None:
-        raise ValueError(
-            "the CUDA tracer needs the fused row table: build the medium "
-            "with Medium.from_grids(..., pack=True)"
-        )
-    if rows.device != dev or rows.dtype != torch.float32 or not rows.is_contiguous() \
-            or rows.shape[1] not in (8, 16) or rows.data_ptr() % 16:
-        raise ValueError("density_rows must be a contiguous, 16-byte aligned "
-                         f"float32 [R, 8 or 16] table on {dev}")
-    emission = 0
-    trows = None
-    pairs = None
-    if emission_enabled(medium, params):
-        if bb_table is None:
-            raise ValueError("an emissive medium needs the blackbody table")
-        pairs = blackbody_pairs(torch.as_tensor(bb_table, dtype=torch.float32, device=dev)).contiguous()
-        if rows.shape[1] >= 16:
-            emission = 1
-        else:
-            emission = 2
-            trows = medium.temperature_rows
-            if trows is None or trows.device != dev or not trows.is_contiguous() \
-                    or trows.data_ptr() % 16:
-                raise ValueError("an 8-wide emissive medium needs its temperature "
-                                 f"corner rows as a contiguous table on {dev}")
-    n_pairs = pairs.shape[0] if pairs is not None else 0
-    fp_np, ip_np = _kernel_params(medium, params, n_pairs, emission)
-    lib = _library()
-    if fp_np.size != lib.vpt_num_fparams() or ip_np.size != lib.vpt_num_iparams():
-        raise RuntimeError("kernel parameter layout mismatch with csrc/trace_lanes.cu")
-    fp = torch.from_numpy(fp_np).pin_memory().to(dev, non_blocking=True)
-    ip = torch.from_numpy(ip_np).pin_memory().to(dev, non_blocking=True)
+    consts = kernel_constants(medium, params, bb_table)
+    tables = _table_args(medium, consts, dev, row_tap, stat)
     pids = _as_i32_bits(pixel_ids.to(dev))
     strm = _as_i32_bits(streams.to(dev))
     _check(pids, "pixel_ids", torch.int32, (n,), dev)
     _check(strm, "streams", torch.int32, (n,), dev)
-    n_trows = trows.shape[0] if trows is not None else 0
-    if row_tap is not None:
-        _check(row_tap, "row_tap", torch.uint8, (rows.shape[0] + n_trows,), dev)
     sf = sf.clone()
     si = si.clone()
-
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
-    err = lib.vpt_trace_lanes(
+    err = _library().vpt_trace_lanes(
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
-        sf.data_ptr(), si.data_ptr(), pids.data_ptr(), strm.data_ptr(),
-        n, int(max_steps), rows.data_ptr(), rows.shape[0], rows.shape[1],
-        ptr(trows), n_trows, ptr(pairs), fp.data_ptr(), ip.data_ptr(), ptr(row_tap),
+        sf.data_ptr(), si.data_ptr(), pids.data_ptr(), strm.data_ptr(), n, int(max_steps), *tables,
     )
-    if err != 0:
-        raise RuntimeError(f"trace_lanes launch failed: {lib.vpt_error_string(err).decode()}")
+    _raise_on(err, "trace_lanes launch")
     global LAUNCHES
     LAUNCHES += 1
     return sf, si
+
+
+def render_wave(
+    medium: Medium, params: IntegratorParams, camera: Camera, bb_table: Optional[torch.Tensor],
+    film: torch.Tensor, pixels: Pixels, stream: int, use_jitter: bool, imaging_ratio: float,
+    max_iters: Optional[int] = None, row_tap: Optional[torch.Tensor] = None,
+    stat: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sample of each of `pixels`, added to `film` in place.
+
+    film: [H, W, 4] float32, contiguous (XYZ sum, sample count). pixels: a
+    contiguous range of global pixel ids (y * W + x), or an integer tensor
+    of them; A PIXEL ID MAY OCCUR ONCE, since each lane adds its sample
+    with a plain read and write: film[pid] += (imaging_ratio * L, 1). stream:
+    the wave's uint32 stream word (utils.rng.mix_stream(seed, wave)); the
+    jitter is drawn on (pid, stream, JITTER_COUNTER), the steps on (pid,
+    stream, lane counter), so the result does not depend on how pixels are
+    split over launches or threads. A lane stopped by the cap (max_iters,
+    default params.max_iters) adds what it gathered and no infinite light.
+
+    Returns (iterations, n_capped) as 0-d int32 tensors: the largest lane
+    counter and the lanes stopped by the cap. No host synchronisation.
+
+    On CUDA tensors this launches render_wave_kernel once, or raises; on CPU
+    tensors it runs render_wave_plain. row_tap and stat: as in trace_lanes.
+    """
+    if film.device.type == "cpu":
+        return render_wave_plain(medium, params, camera, bb_table, film, pixels, stream,
+                                 use_jitter, imaging_ratio, max_iters)
+    if film.device.type != "cuda":
+        raise ValueError(f"render_wave: unsupported device {film.device}")
+    dev = film.device
+    if film.dim() != 3 or film.shape[2] != 4:
+        raise ValueError(f"film: expected [H, W, 4], got {tuple(film.shape)}")
+    _check(film, "film", torch.float32, film.shape, dev)
+    n_pixels = film.shape[0] * film.shape[1]
+    if n_pixels >= 2**31:
+        raise ValueError("the film has too many pixels for 32-bit pixel ids")
+    if isinstance(pixels, range):
+        if pixels.step != 1 or pixels.start < 0 or pixels.stop > n_pixels:
+            raise ValueError(f"pixels: {pixels} is not a contiguous range of the film's pixels")
+        pids, start, n = None, pixels.start, len(pixels)
+    else:
+        # The ids themselves stay unread here: a read would wait for the device.
+        pids = pixels
+        _check(pids, "pixels", torch.int32, (pids.shape[0],), dev)
+        start, n = 0, pids.shape[0]
+    consts = kernel_constants(medium, params, bb_table, camera, film.shape[1], use_jitter,
+                              imaging_ratio)
+    tables = _table_args(medium, consts, dev, row_tap, stat)
+    steps = params.max_iters if max_iters is None else max_iters
+    err = _library().vpt_render_wave(
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+        film.data_ptr(), _ptr(pids), start, n, int(stream) & 0xFFFFFFFF, int(steps), *tables,
+    )
+    _raise_on(err, "render_wave launch")
+    global WAVE_LAUNCHES
+    WAVE_LAUNCHES += 1
+    # The scratch belongs to the next launch too: hand out a copy.
+    out = consts.scratch[1:3].clone()
+    return out[1], out[0]
+
+
+# --------------------------------------------------------- measurement ----
+
+def simt_efficiency(steps: torch.Tensor, group: int = 32) -> float:
+    """SIMT efficiency of running one lane per thread with no refill: the
+    lane-steps taken over the thread-steps issued, when every group of
+    `group` consecutive lanes runs as long as its longest lane.
+
+    steps: [N] integer, the steps each lane took (its counter, for a batch
+    that started at 0). N is padded with idle lanes to a multiple of `group`.
+    """
+    c = steps.to(torch.int64).reshape(-1)
+    pad = (-c.shape[0]) % group
+    if pad:
+        c = torch.cat([c, c.new_zeros(pad)])
+    issued = group * int(c.view(-1, group).max(dim=1).values.sum())
+    return float(c.sum()) / issued if issued else 1.0
+
+
+def stat_size(device: torch.device) -> int:
+    """Length of a launch_stat tensor: two counters, then two clock readings
+    for each warp the card can hold resident."""
+    wave_blocks, trace_blocks, threads, _ = occupancy(device)
+    return 2 + 2 * max(wave_blocks, trace_blocks) * threads // 32
+
+
+def launch_stat(device: torch.device) -> torch.Tensor:
+    """A zeroed tensor for the `stat` argument of render_wave / trace_lanes."""
+    return torch.zeros(stat_size(device), dtype=torch.int64, device=device)
+
+
+def read_launch_stat(stat: torch.Tensor) -> dict:
+    """What a measuring launch wrote into `stat`:
+
+    warp_steps, lane_steps: loop rounds in which a warp stepped, summed over
+    warps, and the thread-steps among them that advanced a lane;
+    simt_efficiency = lane_steps / (32 * warp_steps), as issued;
+    warps: warps that ran; span_ns: first warp start to last warp end, on
+    the device's global timer; half_idle_share: the share of that span
+    during which fewer than half of the warps still had work (the time from
+    the median warp's end to the last warp's end).
+    """
+    s = stat.cpu().numpy()
+    warp_steps, lane_steps = int(s[0]), int(s[1])
+    clocks = s[2:].reshape(-1, 2)
+    clocks = clocks[clocks[:, 1] != 0]
+    out = {
+        "warp_steps": warp_steps, "lane_steps": lane_steps,
+        "simt_efficiency": lane_steps / (32 * warp_steps) if warp_steps else 1.0,
+        "warps": int(clocks.shape[0]), "span_ns": 0, "half_idle_share": 0.0,
+    }
+    if clocks.shape[0]:
+        t0, t1 = int(clocks[:, 0].min()), int(clocks[:, 1].max())
+        ends = np.sort(clocks[:, 1])
+        half = int(ends[(ends.shape[0] - 1) // 2])  # from here on, under half the warps work
+        out["span_ns"] = t1 - t0
+        out["half_idle_share"] = (t1 - half) / (t1 - t0) if t1 > t0 else 0.0
+    return out
 
 
 # -------------------------------------------------------------- tracer ----

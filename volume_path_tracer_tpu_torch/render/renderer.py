@@ -6,10 +6,13 @@ rays; the film keeps the (XYZ sum, sample count) layout, so every wave
 boundary is a valid snapshot. Draws are keyed on (seed, wave, global pixel
 id), so renders are deterministic and independent of chunking.
 
-Path choice (the port's replacement for use_fused_path): every wave goes
-through megakernel.trace_rays_fused, whose wrapper makes the one device
-switch: a medium on a CUDA device runs the CUDA lane kernel, a medium on
-the CPU the plain loop (integrator.advance_lanes, as trace_rays runs it).
+Path choice (the port's replacement for use_fused_path): every wave of
+render and render_wave_image is one call of megakernel.render_wave per pixel
+chunk, whose wrapper makes the one device switch: a film on a CUDA device
+launches the wave kernel (camera rays, tracing and the film add in one
+launch), a film on the CPU runs its plain version. render_rays_wave, for
+callers that want a batch's contribution and not a film, goes through
+megakernel.trace_rays_fused.
 """
 from __future__ import annotations
 
@@ -28,10 +31,7 @@ from ..utils.config import Configuration
 from ..utils.device import DeviceLike, resolve_device, same_device
 from ..utils.spectral import blackbody_xyz_table, breakpoints_for_max_temp
 from .integrator import IntegratorParams, emission_enabled
-from .megakernel import trace_rays_fused
-
-# Jitter draws use a counter no tracing step reaches.
-_JITTER_COUNTER = 2**31 - 1
+from .megakernel import JITTER_COUNTER, render_wave, trace_rays_fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,15 +87,6 @@ def pixel_coords(width: int, height: int) -> np.ndarray:
     return np.stack([xs.reshape(-1), ys.reshape(-1)], axis=-1).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=4)
-def _pixel_coords_device(width: int, height: int, device: torch.device):
-    """Device-resident (coords [H*W, 2], pids [H*W]), uploaded once per shape."""
-    return (
-        torch.from_numpy(pixel_coords(width, height)).to(device),
-        torch.arange(width * height, dtype=torch.int32, device=device),
-    )
-
-
 def _bb_table_for(medium: Medium, params: IntegratorParams) -> Optional[torch.Tensor]:
     if not emission_enabled(medium, params):
         return None
@@ -127,7 +118,7 @@ def render_rays_wave(
     iterations, n_capped), the last two as 0-d tensors.
     """
     stream = vrng.mix_stream(seed, wave)
-    u_jit = vrng.counter_uniforms(pixel_ids, stream, _JITTER_COUNTER, 2)
+    u_jit = vrng.counter_uniforms(pixel_ids, stream, JITTER_COUNTER, 2)
     jitter = u_jit * (0.5 if use_jitter else 0.0)  # half-pixel jitter quirk
     o_w, d_w = camera.generate_rays(raster_xy, jitter)
     L, iters, n_capped = trace_rays_fused(medium, params, bb_table, o_w, d_w, pixel_ids, stream)
@@ -155,40 +146,33 @@ def render_wave_image(
     """
     H, W = scene.height, scene.width
     dev = scene.device
-    if film is None:
-        film = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
-    bb = scene.bb_table
+    # A new film: the caller's stays as it was (render_wave adds in place).
+    out = (torch.zeros((H, W, 4), dtype=torch.float32, device=dev) if film is None
+           else film.clone(memory_format=torch.contiguous_format))
+    stream = vrng.mix_stream(scene.seed, wave)
+
+    def wave_of(pixels):
+        _, n_capped = render_wave(
+            scene.medium, scene.params, scene.camera, scene.bb_table, out, pixels, stream,
+            scene.use_jitter, scene.camera.imaging_ratio,
+        )
+        return n_capped
 
     if scene.single_pixel is not None:
         x, y = scene.single_pixel
-        raster = torch.tensor([[x, y]], dtype=torch.int32, device=dev)
-        pids = torch.tensor([y * W + x], dtype=torch.int32, device=dev)
-        contrib, _, sp_ncap = render_rays_wave(
-            scene.medium, scene.params, scene.camera, bb, raster, pids,
-            scene.seed, wave, scene.use_jitter, scene.camera.imaging_ratio,
-        )
-        film = film.clone()
-        film[y, x] += contrib[0]
-        return (film, sp_ncap) if return_ncap else film
+        sp_ncap = wave_of(range(y * W + x, y * W + x + 1))
+        return (out, sp_ncap) if return_ncap else out
 
     n = W * H
     chunk = chunk_pixels or n
-    out = film.reshape(-1, 4).clone()
-    coords_dev, pids_dev = _pixel_coords_device(W, H, dev)
     ncap_dev = torch.zeros((), dtype=torch.int64, device=dev)
     for start in range(0, n, chunk):
         end = min(start + chunk, n)
-        contrib, _, n_capped = render_rays_wave(
-            scene.medium, scene.params, scene.camera, bb,
-            coords_dev[start:end], pids_dev[start:end],
-            scene.seed, wave, scene.use_jitter, scene.camera.imaging_ratio,
-        )
-        out[start:end] += contrib
-        ncap_dev = ncap_dev + n_capped
+        ncap_dev = ncap_dev + wave_of(range(start, end))
         if chunk_callback is not None and end < n:
-            chunk_callback(end, n, out.reshape(H, W, 4))
+            chunk_callback(end, n, out)
     if return_ncap:
-        return out.reshape(H, W, 4), ncap_dev
+        return out, ncap_dev
     ncap = int(ncap_dev)
     if ncap:
         vlog.warn(
@@ -196,7 +180,7 @@ def render_wave_image(
             f"(max_iters={scene.params.max_iters}) - raise --max-iters to "
             f"eliminate the bias"
         )
-    return out.reshape(H, W, 4)
+    return out
 
 
 def render(
