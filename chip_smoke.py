@@ -12,7 +12,10 @@ Phases, each stopping the run with a non-zero exit on failure:
               card. trace_lanes (state in, state out): one step on a
               mid-flight flagship batch (every state field, lane by lane),
               then full traces on three small scenes. render_wave (pixel ids
-              in, film out): the same three scenes through a small camera
+              in, film out): the same three scenes through a small camera.
+              Each of these once more on the same media built with
+              pack=False (the dense instantiations of both kernels), against
+              the plain version and against the packed kernel's result
   4. flagship the main path, Scene.from_config -> render -> film_to_srgb_u8
               -> write_png, on the flagship configuration (wdas_cloud
               transport, fog_sphere(30, 6) = 77^3, 256x256 at 16 waves);
@@ -21,16 +24,25 @@ Phases, each stopping the run with a non-zero exit on failure:
               repeated wave bitwise, the kernels' device times, bounds, SIMT
               efficiency and idle tail, the device time against max_steps,
               the ray-batch path (render_rays_wave, which goes through
-              trace_lanes), and a profile of one pass
+              trace_lanes), and a profile of one pass. Then the unpacked
+              flagship medium: one whole wave by each dense kernel against
+              its plain version and the packed kernel, the dense kernels'
+              lines, and the unpacked main path and ray-batch path
   5. fire     the same path on bench.py's fire cell (fire transport,
               fire_plume(96, 28), 256x256, 4 waves): the misaligned
-              temperature grid (8-wide rows plus the temperature gather) and
-              the aligned one (16-wide rows), with the kernel's lines
+              temperature grid (8-wide rows plus the temperature gather), the
+              aligned one (16-wide rows) and the unpacked medium (the dense
+              temperature array), with the kernel's lines
   6. 512^3    big_cloud(512) with its 4.3 GB fused table, 256x256, 2 waves;
               rays/s, peak device memory and the kernel's lines (the
-              generated grid is cached in chip_smoke_out/ for later runs)
-  7. cli      cli.main on the procedural plume, 256x256, 2 waves; the PNG
-              is read back
+              generated grid is cached in chip_smoke_out/ for later runs).
+              The same grid written to .nvdb and read back, C++ core against
+              numpy path (host seconds, file size), and rendered unpacked
+              (0.54 GB on the card) beside the packed numbers
+  7. cli      cli.main on scene files whose volume_path names a .nvdb written
+              here (the flagship stand-in and the fire plume, 256x256): the
+              medium read back and the film against the direct build; then
+              the procedural plume, and once more with --profile
 
 The line before the last is the kernels' JSON record (launches on the main
 path, error against the plain version, times and bound); the last line is
@@ -118,8 +130,11 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name}  (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def gpu_name_and_limit():
@@ -223,12 +238,23 @@ def wave_args(scene, wave):
                 use_jitter=scene.use_jitter, imaging_ratio=scene.camera.imaging_ratio)
 
 
+def tap_bytes(medium, params, bb_table, tap):
+    """(bytes, words) of what a measuring launch marked in `tap`: every
+    distinct table row, or for an unpacked medium every distinct 32-byte
+    sector of the density and temperature arrays and every majorant pair."""
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+
+    marks = mk.read_row_tap(medium, params, bb_table, tap)
+    return sum(b for *_, b in marks), ", ".join(f"{hit} of {n} {what}" for what, hit, n, _ in marks)
+
+
 def wave_kernel_report(scene, what, card):
     """render_wave_kernel on wave 1 of `scene`, alone: device time (CUPTI,
-    mean of 10), and from one measuring launch the lane-steps, the distinct
-    rows read, SIMT efficiency as issued and the idle tail. The bound counts
-    each byte once: 16 B of film read and 16 B written per pixel and every
-    distinct table row; operations: the lane-steps taken plus the ray set-up."""
+    mean of 10), and from one measuring launch the lane-steps, what it read
+    of the medium, SIMT efficiency as issued and the idle tail. The bound
+    counts each byte once: 16 B of film read and 16 B written per pixel and
+    every distinct table row (unpacked: density and temperature sectors and
+    majorant pairs); operations: the lane-steps taken plus the ray set-up."""
     import torch
 
     from volume_path_tracer_tpu_torch.render import megakernel as mk
@@ -240,17 +266,12 @@ def wave_kernel_report(scene, what, card):
     film = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
     ms = kernel_device_ms(lambda: mk.render_wave(film=film, pixels=range(0, n), **kw), 10,
                           "render_wave_kernel")
-    rows = scene.medium.density_rows
-    trows = scene.medium.temperature_rows
-    n_t = trows.shape[0] if (trows is not None and rows.shape[1] == 8 and scene.bb_table is not None) else 0
-    tap = torch.zeros(rows.shape[0] + n_t, dtype=torch.uint8, device=dev)
+    tap = mk.new_row_tap(scene.medium, scene.params, scene.bb_table)
     stat = mk.launch_stat(dev)
     iters, ncap = mk.render_wave(film=film, pixels=range(0, n), row_tap=tap, stat=stat, **kw)
     torch.cuda.synchronize()
     st = mk.read_launch_stat(stat)
-    rows_read = int(tap[:rows.shape[0]].sum())
-    trows_read = int(tap[rows.shape[0]:].sum())
-    row_bytes = rows_read * rows.shape[1] * 4 + trows_read * 32
+    row_bytes, read_words = tap_bytes(scene.medium, scene.params, scene.bb_table, tap)
     bytes_moved = n * 32 + row_bytes
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops = st["lane_steps"] * OPS_PER_LANE_STEP + n * OPS_PER_RAY_SETUP
@@ -258,14 +279,32 @@ def wave_kernel_report(scene, what, card):
     bound_ms = max(bytes_ms, ops_ms)
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"render_wave {what} ({n} pixels, one wave): kernel {ms:.4f} ms (device time, mean of 10); "
-          f"lane-steps {st['lane_steps']} (longest lane {int(iters)}, n_capped {int(ncap)}); rows read "
-          f"{rows_read} of {rows.shape[0]}" + (f" and {trows_read} temperature rows" if n_t else "")
-          + f"; bound {bound_ms:.5f} ms ({by}: {bytes_moved} B = {n * 32} B film + {row_bytes} B rows, "
+          f"lane-steps {st['lane_steps']} (longest lane {int(iters)}, n_capped {int(ncap)}); read "
+          f"{read_words}; bound {bound_ms:.5f} ms ({by}: {bytes_moved} B = {n * 32} B film + {row_bytes} B "
+          f"of the medium, "
           f"{bytes_ms:.5f} ms; {ops} fp32 ops, {ops_ms:.5f} ms) = {bound_ms / ms:.4f} of the kernel's time; "
           f"SIMT efficiency as issued {st['simt_efficiency']:.4f} ({st['warp_steps']} warp-steps on "
           f"{st['warps']} warps); under half of the warps at work for {st['half_idle_share']:.3f} of the "
           f"measuring launch ({st['span_ns'] / 1e6:.4f} ms on the device timer) on {card}")
     return dict(ms=ms, bound_ms=bound_ms, bound_by=by, **st)
+
+
+def crop_to_active(grid):
+    """(data, origin_ijk) of a grid cut to the bounding box of its nonzero
+    voxels: what a .nvdb reader returns for it."""
+    import numpy as np
+
+    data = grid.data.cpu().numpy()
+    nz = np.nonzero(data)
+    lo = [int(a.min()) for a in nz]
+    hi = [int(a.max()) + 1 for a in nz]
+    cut = np.ascontiguousarray(data[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]])
+    return cut, tuple(o + l for o, l in zip(grid.origin_ijk, lo))
+
+
+def reset_launch_counts(mk):
+    mk.WAVE_LAUNCHES = mk.LAUNCHES = mk.PLAIN_WAVE_LAUNCHES = mk.PLAIN_LAUNCHES = 0
+    mk.DENSE_WAVE_LAUNCHES = mk.DENSE_LAUNCHES = 0
 
 
 def profile_pass(scene, png_path, best_s, what):
@@ -335,10 +374,11 @@ def main_path(scene, passes, png_path, what, card):
     from volume_path_tracer_tpu_torch.render import megakernel as mk
     from volume_path_tracer_tpu_torch.render.renderer import render_wave_image
 
-    mk.WAVE_LAUNCHES = mk.LAUNCHES = mk.PLAIN_WAVE_LAUNCHES = mk.PLAIN_LAUNCHES = 0
+    reset_launch_counts(mk)
     times, render_times, film, img = render_passes(scene, passes, png_path)
     counts = dict(render_wave=mk.WAVE_LAUNCHES, trace_lanes=mk.LAUNCHES,
-                  render_wave_plain=mk.PLAIN_WAVE_LAUNCHES, trace_lanes_plain=mk.PLAIN_LAUNCHES)
+                  render_wave_plain=mk.PLAIN_WAVE_LAUNCHES, trace_lanes_plain=mk.PLAIN_LAUNCHES,
+                  render_wave_dense=mk.DENSE_WAVE_LAUNCHES)
     waves = scene.num_waves
     rays_s = scene.width * scene.height * waves / min(times)
     ncap = sum(int(render_wave_image(scene, w, return_ncap=True)[1]) for w in range(1, waves + 1))
@@ -351,6 +391,9 @@ def main_path(scene, passes, png_path, what, card):
           f"waves, max_iters {scene.params.max_iters}) {ncap}, film finite {finite}, weights == waves "
           f"{weights_ok}, image mean {img.mean():.2f} on {card}")
     check(counts["render_wave"] > 0, f"{what}: the main path never launched the wave kernel")
+    dense_want = counts["render_wave"] if scene.medium.density_rows is None else 0
+    check(counts["render_wave_dense"] == dense_want,
+          f"{what}: {counts['render_wave_dense']} dense launches, expected {dense_want}")
     check(counts["render_wave_plain"] == 0 and counts["trace_lanes_plain"] == 0,
           f"{what}: the main path ran a plain version")
     check(finite and weights_ok, f"{what}: film is not finite or has wrong weights")
@@ -435,6 +478,21 @@ def main():
           f"int fields equal where floats agree: {bool(i_ok[f_ok].all())}, max_abs_err {one_step_max_abs:.3e}")
     check(one_step_agree >= 0.99, f"one-step agreement {one_step_agree} < 0.99")
     check(bool(i_ok[f_ok].all()), "integer fields differ where the float fields agree")
+    # the same step by the dense instantiation, on the same medium unpacked
+    flag_dense = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=False)
+    dkf, dki = mk.trace_lanes(flag_dense, flag.params, None, sf_mid, si_mid, pids, streams, 1)
+    dpf, dpi = mk.trace_lanes_plain(flag_dense, flag.params, None, sf_mid, si_mid, pids, streams, 1)
+    torch.cuda.synchronize()
+    df_ok = torch.isclose(dkf, dpf, rtol=1e-5, atol=1e-6).all(0)
+    dense_step_agree = float(df_ok.float().mean())
+    dense_step_max_abs = float((dkf - dpf).abs().max())
+    dense_step_same = bool(torch.equal(dkf, kf) and torch.equal(dki, ki))
+    print(f"one step, dense instantiation: agree {dense_step_agree:.6f} with its plain version, max_abs_err "
+          f"{dense_step_max_abs:.3e}; bitwise equal to the packed kernel's step: {dense_step_same}; plain "
+          f"unpacked bitwise equal to plain packed: {bool(torch.equal(dpf, pf) and torch.equal(dpi, pi))}")
+    check(dense_step_agree >= 0.99, f"dense one-step agreement {dense_step_agree} < 0.99")
+    check(bool((dki == dpi).all(0)[df_ok].all()), "dense: integer fields differ where the float fields agree")
+    check(dense_step_same, "the dense step differs from the packed step on the same medium")
 
     # (b) full traces on the three scenes of tests/test_megakernel.py:
     # trace_lanes on a ray batch, render_wave through a small camera
@@ -444,36 +502,54 @@ def main():
     fire_cam = CameraParameters((60.0, 20.0, 0.0), (0.0, 20.0, 0.0), (0.0, 1.0, 0.0), 40.0, 0.1)
     fog_cam = CameraParameters((45.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 40.0, 0.1)
     cases = [
-        ("fog_sphere", Medium.from_grids(fog_sphere(radius=12.0, falloff=3.0)),
+        ("fog_sphere", (fog_sphere(radius=12.0, falloff=3.0),),
          integ.IntegratorParams(**FOG_PARAMS), None, (-14, 14), (-14, 14), fog_cam),
-        ("fire_plume_8wide", Medium.from_grids(dens, temp),
+        ("fire_plume_8wide", (dens, temp),
          integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10), fire_cam),
-        ("fire_plume_16wide", Medium.from_grids(dens, temp_al),
+        ("fire_plume_16wide", (dens, temp_al),
          integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10), fire_cam),
     ]
     N, SW, SH = 2048, 64, 32
-    for name, med, prm, bbt, yr, zr, cam_p in cases:
+    for name, grids, prm, bbt, yr, zr, cam_p in cases:
         rng = np.random.default_rng(0)
         o = np.stack([np.full(N, -40.0), rng.uniform(*yr, N), rng.uniform(*zr, N)], -1)
         o = torch.tensor(o, dtype=torch.float32, device=dev)
         d = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(N, 3).contiguous()
         lp = torch.arange(N, dtype=torch.int32, device=dev)
         s = vrng.mix_stream(3, 1)
-        L_k, _, nc_k = mk.trace_rays_fused(med, prm, bbt, o, d, lp, s)
-        sfa, sia = mk.pack_state(integ.init_state(med, o, d, prm))
-        sfp, sip = mk.trace_lanes_plain(med, prm, bbt, sfa, sia, lp, integ.lane_streams(s, N, dev), prm.max_iters)
-        width = med.density_rows.shape[1]
-        trace_statistic(L_k.cpu().numpy(), int(nc_k), sfp[10:13].T.cpu().numpy(),
-                        int((sip[1] != integ.DONE).sum()),
-                        f"trace_lanes {name} ({width}-wide rows, {N} lanes)")
         cam = Camera.from_parameters(cam_p, (SW, SH))
-        films = [torch.zeros((SH, SW, 4), dtype=torch.float32, device=dev) for _ in range(2)]
-        wave = (med, prm, cam, bbt)
-        it_k, nc_k = mk.render_wave(*wave, films[0], range(0, SW * SH), s, True, 0.1)
-        it_p, nc_p = mk.render_wave_plain(*wave, films[1], range(0, SW * SH), s, True, 0.1)
-        film_statistic(films[0], int(nc_k), films[1], int(nc_p),
-                       f"render_wave {name} ({width}-wide rows, {SW}x{SH} pixels; longest lane "
-                       f"{int(it_k)} vs {int(it_p)})")
+        packed = None
+        for pack in (True, False):
+            med = Medium.from_grids(*grids, pack=pack)
+            layout = f"{med.density_rows.shape[1]}-wide rows" if pack else "unpacked, dense instantiation"
+            L_k, _, nc_k = mk.trace_rays_fused(med, prm, bbt, o, d, lp, s)
+            sfa, sia = mk.pack_state(integ.init_state(med, o, d, prm))
+            sfp, sip = mk.trace_lanes_plain(med, prm, bbt, sfa, sia, lp, integ.lane_streams(s, N, dev),
+                                            prm.max_iters)
+            trace_statistic(L_k.cpu().numpy(), int(nc_k), sfp[10:13].T.cpu().numpy(),
+                            int((sip[1] != integ.DONE).sum()), f"trace_lanes {name} ({layout}, {N} lanes)")
+            films = [torch.zeros((SH, SW, 4), dtype=torch.float32, device=dev) for _ in range(2)]
+            wave = (med, prm, cam, bbt)
+            it_k, nc_k = mk.render_wave(*wave, films[0], range(0, SW * SH), s, True, 0.1)
+            it_p, nc_p = mk.render_wave_plain(*wave, films[1], range(0, SW * SH), s, True, 0.1)
+            film_statistic(films[0], int(nc_k), films[1], int(nc_p),
+                           f"render_wave {name} ({layout}, {SW}x{SH} pixels; longest lane "
+                           f"{int(it_k)} vs {int(it_p)})")
+            if pack:
+                packed = (L_k, films[0])
+                continue
+            # The dense kernel against the packed kernel. Required bitwise
+            # where both read the temperature through its own transform (or
+            # none); the 16-wide rows carry it in the density grid's frame
+            # instead, another arithmetic: the line says what it found.
+            same = bool(torch.equal(L_k, packed[0])), bool(torch.equal(films[0], packed[1]))
+            close = float(torch.isclose(films[0], packed[1], rtol=1e-4, atol=1e-5).all(-1).float().mean())
+            print(f"dense against packed kernel, {name}: trace_lanes bitwise equal {same[0]}, render_wave "
+                  f"bitwise equal {same[1]}, pixels close {close:.4f}")
+            if name != "fire_plume_16wide":
+                check(all(same), f"{name}: the dense kernels differ from the packed kernels")
+            check(close > 0.95, f"{name}: dense and packed films differ on {1 - close:.3f} of the pixels")
+    del packed, films, med
 
     # ------------------------------------------------------------------
     phase("4 flagship main path")
@@ -541,29 +617,35 @@ def main():
     # The bound counts each byte once: the state read and written, pixel ids
     # and streams (int32), and every table row the run reads, as the kernel
     # itself marks them (row_tap); the parameters (< 400 B) are left out.
-    tap = torch.zeros(flag_med.density_rows.shape[0], dtype=torch.uint8, device=dev)
-    stat = mk.launch_stat(dev)
-    kernel_wave(tap, stat)
-    torch.cuda.synchronize()
-    tl = mk.read_launch_stat(stat)
-    rows_read = int(tap.sum())
-    lane_steps = int(si_k[2].to(torch.int64).sum())
-    check(tl["lane_steps"] == lane_steps, "the kernel's step count differs from the lane counters' sum")
-    row_bytes = flag_med.density_rows.shape[1] * 4
     state_bytes = (len(mk.STATE_F32) + len(mk.STATE_I32)) * 4 * 2 + 8
-    bytes_moved = n * state_bytes + rows_read * row_bytes
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = lane_steps * OPS_PER_LANE_STEP / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"trace_lanes one flagship wave ({n} lanes): kernel {kernel_ms:.4f} ms (device time, "
-          f"mean of 10), wrapper {wrapper_ms:.4f} ms (CUDA events, mean of 10); plain version "
-          f"{plain_ms:.1f} ms; lane-steps {lane_steps} (longest lane {int(si_k[2].max())}); "
-          f"rows read {rows_read} of {flag_med.density_rows.shape[0]}; bound {bound_ms:.5f} ms "
-          f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {bytes_moved} B = "
-          f"{n * state_bytes} B state + {rows_read * row_bytes} B rows, {bytes_ms:.5f} ms; "
-          f"{lane_steps * OPS_PER_LANE_STEP} fp32 ops, {ops_ms:.5f} ms); SIMT efficiency as issued "
-          f"{tl['simt_efficiency']:.4f}, under half of the warps at work for {tl['half_idle_share']:.3f} "
-          f"of the measuring launch on {card}")
+
+    def trace_lanes_report(medium, si_out, ms, wrapper, plain, what):
+        """The bound of one trace_lanes wave, from one measuring launch on
+        `medium`; prints the kernel's line and returns (bound_ms, bound_by)."""
+        tap = mk.new_row_tap(medium, flag.params, None)
+        stat = mk.launch_stat(dev)
+        mk.trace_lanes(medium, flag.params, None, sf0, si0, pids, streams, FLAGSHIP_MAX_ITERS,
+                       row_tap=tap, stat=stat)
+        torch.cuda.synchronize()
+        tl = mk.read_launch_stat(stat)
+        lane_steps = int(si_out[2].to(torch.int64).sum())
+        check(tl["lane_steps"] == lane_steps, "the kernel's step count differs from the lane counters' sum")
+        row_bytes, read_words = tap_bytes(medium, flag.params, None, tap)
+        bytes_moved = n * state_bytes + row_bytes
+        b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        o_ms = lane_steps * OPS_PER_LANE_STEP / FP32_OPS_PER_S * 1e3
+        by = "bytes" if b_ms >= o_ms else "operations"
+        print(f"trace_lanes one flagship wave, {what} ({n} lanes): kernel {ms:.4f} ms (device time, "
+              f"mean of 10), wrapper {wrapper:.4f} ms (CUDA events, mean of 10); plain version "
+              f"{plain:.1f} ms; lane-steps {lane_steps} (longest lane {int(si_out[2].max())}); "
+              f"read {read_words}; bound {max(b_ms, o_ms):.5f} ms ({by}: {bytes_moved} B = "
+              f"{n * state_bytes} B state + {row_bytes} B of the medium, {b_ms:.5f} ms; "
+              f"{lane_steps * OPS_PER_LANE_STEP} fp32 ops, {o_ms:.5f} ms); SIMT efficiency as issued "
+              f"{tl['simt_efficiency']:.4f}, under half of the warps at work for {tl['half_idle_share']:.3f} "
+              f"of the measuring launch on {card}")
+        return max(b_ms, o_ms), by
+
+    bound_ms, bound_by = trace_lanes_report(flag_med, si_k, kernel_ms, wrapper_ms, plain_ms, "8-wide rows")
     # What holds the lane loop: the SIMT efficiency one thread per lane would
     # have with no refill (from the lane counters), and the device time
     # against max_steps (the slope over the first steps is a step's cost on
@@ -581,38 +663,118 @@ def main():
     # The ray-batch path: render_rays_wave hands a batch's contribution to
     # its caller and goes through trace_lanes. Two waves, against the films
     # the wave kernel makes of them (other ray arithmetic: the statistic).
-    mk.WAVE_LAUNCHES = mk.LAUNCHES = mk.PLAIN_WAVE_LAUNCHES = mk.PLAIN_LAUNCHES = 0
+    reset_launch_counts(mk)
     contribs = [render_rays_wave(flag_med, flag.params, flag.camera, None, coords, pids, flag.seed, w,
                                  flag.use_jitter, flag.camera.imaging_ratio) for w in (1, 2)]
     trace_launches, trace_plain = mk.LAUNCHES, mk.PLAIN_LAUNCHES
-    check(trace_launches == 2 and trace_plain == 0 and mk.WAVE_LAUNCHES == 0,
+    check(trace_launches == 2 and trace_plain == 0 and mk.WAVE_LAUNCHES == 0 and mk.DENSE_LAUNCHES == 0,
           "render_rays_wave did not go through trace_lanes_kernel")
     for w, (contrib, _, nc) in zip((1, 2), contribs):
         film_w, nc_w = render_wave_image(flag, w, return_ncap=True)
         film_statistic(contrib, int(nc), film_w, int(nc_w), f"render_rays_wave against render_wave, wave {w}")
-    del film_k, film_p, film_c, film_r, film_s, sf_k, si_k, sf_p, si_p, tap, contribs
+    del film_c, film_r, film_s, contribs
 
     profile_pass(flag, os.path.join(OUT_DIR, "flagship_profiled.png"), flag_best_s, "flagship")
 
+    # ---- the same medium unpacked: the dense instantiations ----
+    # One whole wave by each dense kernel against its plain version (the
+    # statistic the packed kernels are held to) and against the packed
+    # kernel's result (the same corners in the same order: bitwise).
+    dflag = Scene.from_config(flag_cfg, flag_dense, max_iters=FLAGSHIP_MAX_ITERS)
+    dkw = wave_args(dflag, 1)
+    film_d = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+    it_d, nc_d = mk.render_wave(film=film_d, pixels=range(0, n), **dkw)
+    torch.cuda.synchronize()
+    film_dp = torch.zeros_like(film_d)
+    t0 = time.perf_counter()
+    it_dp, nc_dp = mk.render_wave_plain(film=film_dp, pixels=range(0, n), **dkw)
+    torch.cuda.synchronize()
+    dense_wave_plain_ms = (time.perf_counter() - t0) * 1e3
+    film_statistic(film_d, int(nc_d), film_dp, int(nc_dp),
+                   f"render_wave flagship wave, dense instantiation (longest lane {int(it_d)} vs {int(it_dp)})")
+    dense_wave_max_abs = float((film_d - film_dp).abs().max())
+    dense_film_same = bool(torch.equal(film_d, film_k))
+    print(f"render_wave flagship wave: dense film bitwise equal to the packed kernel's {dense_film_same}; "
+          f"plain unpacked bitwise equal to plain packed {bool(torch.equal(film_dp, film_p))}; max_abs_err "
+          f"against the plain version {dense_wave_max_abs:.3e}; plain version {dense_wave_plain_ms:.1f} ms")
+    check(dense_film_same, "the dense wave kernel's flagship film differs from the packed kernel's")
+    dense_wave_rep = wave_kernel_report(dflag, "flagship, dense instantiation", card)
+
+    def dense_kernel_wave():
+        return mk.trace_lanes(flag_dense, flag.params, None, sf0, si0, pids, streams, FLAGSHIP_MAX_ITERS)
+
+    sf_d, si_d = dense_kernel_wave()
+    dense_wrapper_ms = cuda_ms(dense_kernel_wave, 10)
+    t0 = time.perf_counter()
+    sf_dp, si_dp = mk.trace_lanes_plain(flag_dense, flag.params, None, sf0, si0, pids, streams,
+                                        FLAGSHIP_MAX_ITERS)
+    torch.cuda.synchronize()
+    dense_plain_ms = (time.perf_counter() - t0) * 1e3
+    trace_statistic(sf_d[10:13].T.cpu().numpy(), int((si_d[1] != integ.DONE).sum()),
+                    sf_dp[10:13].T.cpu().numpy(), int((si_dp[1] != integ.DONE).sum()),
+                    f"trace_lanes flagship wave, dense instantiation ({n} lanes)")
+    check(bool(torch.equal(sf_d, sf_k) and torch.equal(si_d, si_k)),
+          "the dense trace_lanes kernel's flagship state differs from the packed kernel's")
+    dense_kernel_ms = kernel_device_ms(dense_kernel_wave, 10, "trace_lanes_kernel")
+    dense_bound_ms, dense_bound_by = trace_lanes_report(flag_dense, si_d, dense_kernel_ms, dense_wrapper_ms,
+                                                        dense_plain_ms, "unpacked")
+    # the unpacked main path (render -> tonemap -> PNG) and ray-batch path
+    _, dflag_rays_s, dncap, dflag_counts = main_path(dflag, 2, os.path.join(OUT_DIR, "flagship_unpacked.png"),
+                                                     "flagship unpacked", card)
+    check(dncap == 0, f"{dncap} unpacked flagship rays truncated at the step cap")
+    reset_launch_counts(mk)
+    d_contrib, _, d_nc = render_rays_wave(flag_dense, flag.params, flag.camera, None, coords, pids, flag.seed, 1,
+                                          flag.use_jitter, flag.camera.imaging_ratio)
+    dense_trace_launches = mk.DENSE_LAUNCHES
+    check(dense_trace_launches == 1 and mk.LAUNCHES == 1 and mk.PLAIN_LAUNCHES == 0,
+          "render_rays_wave on the unpacked medium did not go through the dense trace_lanes_kernel")
+    film_statistic(d_contrib, int(d_nc), film_d, int(nc_d), "render_rays_wave against render_wave, unpacked")
+    del film_k, film_p, film_d, film_dp, sf_k, si_k, sf_p, si_p, sf_d, si_d, sf_dp, si_dp, d_contrib, dflag
+
     # ------------------------------------------------------------------
     phase("5 fire")
-    del flag, flag_med
+    del flag, flag_med, flag_dense
     torch.cuda.empty_cache()
     fire_cfg = loads_configuration(json.dumps(FIRE_SCENE))
     f_dens, f_temp = fire_plume(height=96, radius=28.0)
     f_temp_al = dense_grid_from_array(f_temp.data, f_temp.origin_ijk, f_temp.voxel_size, (0.0, 0.0, 0.0))
     fire_rays_s = {}
-    for width, temp_grid in ((8, f_temp), (16, f_temp_al)):
-        med = Medium.from_grids(f_dens, temp_grid)
-        check(med.density_rows.shape[1] == width, f"fire medium has {med.density_rows.shape[1]}-wide rows")
+    fire_film_8 = None
+    for width, temp_grid in ((8, f_temp), (16, f_temp_al), ("unpacked", f_temp)):
+        med = Medium.from_grids(f_dens, temp_grid, pack=width != "unpacked")
+        label = "fire unpacked" if width == "unpacked" else f"fire {width}-wide rows"
+        if width == "unpacked":
+            check(med.density_rows is None and med.temperature_rows is None, "the unpacked fire medium has tables")
+        else:
+            check(med.density_rows.shape[1] == width, f"fire medium has {med.density_rows.shape[1]}-wide rows")
         sc = Scene.from_config(fire_cfg, med, max_iters=FIRE_MAX_ITERS)
-        png = os.path.join(OUT_DIR, f"fire_{width}wide.png")
+        png = os.path.join(OUT_DIR, f"fire_{width}{'' if width == 'unpacked' else 'wide'}.png")
         render(sc, num_waves=1)  # warm-up: the blackbody table, first-call allocations
-        times, fire_rays_s[width], _, _ = main_path(sc, 2, png, f"fire {width}-wide rows", card)
-        wave_kernel_report(sc, f"fire {width}-wide rows", card)
-        profile_pass(sc, os.path.join(OUT_DIR, f"fire_{width}wide_profiled.png"), min(times),
-                     f"fire {width}-wide")
+        times, fire_rays_s[width], _, _ = main_path(sc, 2, png, label, card)
+        wave_kernel_report(sc, label, card)
+        if width == 16:
+            profile_pass(sc, os.path.join(OUT_DIR, "fire_16wide_profiled.png"), min(times), "fire 16-wide")
+        if width == 8:
+            fire_film_8 = render_wave_image(sc, 1)
+        if width == "unpacked":
+            # The third emission arm (the dense temperature array through its
+            # own transform) on one whole wave: against the plain version, and
+            # against the 8-wide kernel, which reads the same corners from its
+            # temperature rows through the same transform.
+            fkw = wave_args(sc, 1)
+            film_fk = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+            it_fk, nc_fk = mk.render_wave(film=film_fk, pixels=range(0, n), **fkw)
+            film_fp = torch.zeros_like(film_fk)
+            it_fp, nc_fp = mk.render_wave_plain(film=film_fp, pixels=range(0, n), **fkw)
+            film_statistic(film_fk, int(nc_fk), film_fp, int(nc_fp),
+                           f"render_wave fire wave, dense instantiation (longest lane {int(it_fk)} vs {int(it_fp)})")
+            fire_same = bool(torch.equal(film_fk, fire_film_8))
+            print(f"render_wave fire wave: dense film bitwise equal to the 8-wide kernel's {fire_same}")
+            check(fire_same, "the dense emissive film differs from the 8-wide kernel's")
+            check(float(film_fk[..., :3].max()) > 0, "the dense emissive film is black")
+            del film_fk, film_fp
         del med, sc
+    del fire_film_8
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -628,22 +790,144 @@ def main():
     cloud_cfg = dict(WDAS_SCENE, num_waves=2)
     cloud_cfg["camera_parameters"] = dict(WDAS_SCENE["camera_parameters"],
                                           position=[900.0, 0.0, 0.0], vfov_deg=40.0)
-    cloud_scene = Scene.from_config(loads_configuration(json.dumps(cloud_cfg)), cloud_med,
-                                    max_iters=FLAGSHIP_MAX_ITERS)
+    cloud_cfg = loads_configuration(json.dumps(cloud_cfg))
+    cloud_scene = Scene.from_config(cloud_cfg, cloud_med, max_iters=FLAGSHIP_MAX_ITERS)
     png = os.path.join(OUT_DIR, "big_cloud_512.png")
     _, cloud_rays_s, _, _ = main_path(cloud_scene, 2, png, "big_cloud 512^3", card)
     peak = torch.cuda.max_memory_allocated()
     print(f"big_cloud 512^3: {'load from cache' if cached else 'generate'} {gen_s:.1f} s, medium "
           f"build {build_s:.2f} s, table {tuple(cloud_med.density_rows.shape)} = "
           f"{cloud_med.density_rows.numel() * 4 / 1e9:.2f} GB, peak device memory {peak / 1e9:.2f} GB")
-    wave_kernel_report(cloud_scene, "big_cloud 512^3", card)
-    del cloud, cloud_med, cloud_scene
+    cloud_rep = wave_kernel_report(cloud_scene, "big_cloud 512^3", card)
+    del cloud_med, cloud_scene
+    torch.cuda.empty_cache()
+
+    # ---- the production-size file: written and read, C++ core and numpy ----
+    # Host work, on the host's clock: the seconds say how long a user waits
+    # for a scene to load, not what the card does.
+    import contextlib
+    import hashlib
+
+    from volume_path_tracer_tpu_torch.grids import native, nvdb
+
+    cloud_np = cloud.data.numpy()
+    nvdb_path = os.path.join(OUT_DIR, "big_cloud_512.nvdb")
+    check(native.available(), "the C++ core of the .nvdb I/O was not built (no g++?)")
+    file_s, digests, read_back = {}, {}, {}
+    for which in ("core", "numpy"):
+        with native.numpy_only() if which == "numpy" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            nvdb.write_nvdb(nvdb_path, {"density": (cloud_np, cloud.origin_ijk, cloud.voxel_size, cloud.world_offset)})
+            file_s[which, "write"] = time.perf_counter() - t0
+            with open(nvdb_path, "rb") as f:
+                digests[which] = hashlib.sha1(f.read()).hexdigest()
+            t0 = time.perf_counter()
+            read_back[which] = nvdb.read_nvdb(nvdb_path)["density"]
+            file_s[which, "read"] = time.perf_counter() - t0
+    g = read_back["core"]
+    lo = [a - b for a, b in zip(g.origin_ijk, cloud.origin_ijk)]
+    hi = [l + e for l, e in zip(lo, g.data.shape)]
+    inside = cloud_np[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+    n_active = int(np.count_nonzero(cloud_np))
+    print(f"big_cloud 512^3 as .nvdb (host work): file {os.path.getsize(nvdb_path) / 1e6:.1f} MB, "
+          f"{g.meta['node_count'][0]} leaves, {n_active} active voxels of {cloud_np.size}; write "
+          f"{file_s['core', 'write']:.2f} s with the C++ core, {file_s['numpy', 'write']:.2f} s with numpy; read "
+          f"{file_s['core', 'read']:.2f} s with the C++ core, {file_s['numpy', 'read']:.2f} s with numpy; files "
+          f"bitwise equal {digests['core'] == digests['numpy']}; active box {tuple(g.data.shape)} at {g.origin_ijk}")
+    check(digests["core"] == digests["numpy"], "the C++ core and the numpy path wrote different files")
+    check(np.array_equal(g.data, read_back["numpy"].data) and g.origin_ijk == read_back["numpy"].origin_ijk,
+          "the C++ core and the numpy path read different grids")
+    check(np.array_equal(g.data, inside) and int(np.count_nonzero(inside)) == n_active,
+          "the 512^3 grid read back differs from the grid written")
+    check(g.voxel_size == cloud.voxel_size and tuple(g.world_offset) == tuple(cloud.world_offset),
+          "the 512^3 grid's transform changed in the file")
+    os.remove(nvdb_path)
+    del read_back, g, inside, cloud_np
+
+    # ---- the same cloud unpacked: 0.54 GB on the card instead of 4.33 GB ----
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cloud_dense = Medium.from_grids(cloud, pack=False)
+    torch.cuda.synchronize()
+    dense_build_s = time.perf_counter() - t0
+    dcloud_scene = Scene.from_config(cloud_cfg, cloud_dense, max_iters=FLAGSHIP_MAX_ITERS)
+    _, dcloud_rays_s, dcloud_ncap, dcloud_counts = main_path(
+        dcloud_scene, 2, os.path.join(OUT_DIR, "big_cloud_512_unpacked.png"), "big_cloud 512^3 unpacked", card)
+    check(dcloud_ncap == 0, f"{dcloud_ncap} unpacked 512^3 rays truncated at max_iters {FLAGSHIP_MAX_ITERS}")
+    dpeak = torch.cuda.max_memory_allocated()
+    dcloud_rep = wave_kernel_report(dcloud_scene, "big_cloud 512^3 unpacked", card)
+    print(f"big_cloud 512^3 unpacked: medium build {dense_build_s:.2f} s, density array "
+          f"{cloud_dense.density.data.numel() * 4 / 1e9:.2f} GB, peak device memory {dpeak / 1e9:.2f} GB "
+          f"(packed: {peak / 1e9:.2f} GB); rays/s {dcloud_rays_s:.1f} (packed: {cloud_rays_s:.1f}); wave kernel "
+          f"{dcloud_rep['ms']:.4f} ms for {dcloud_rep['lane_steps']} lane-steps (packed: {cloud_rep['ms']:.4f} ms "
+          f"for {cloud_rep['lane_steps']}) on {card}")
+    del cloud, cloud_dense, dcloud_scene
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
     phase("7 cli")
     from volume_path_tracer_tpu_torch import cli
     from volume_path_tracer_tpu_torch.io.png import read_png
+
+    # Scenes as a user has them: a JSON whose volume_path names a .nvdb. The
+    # grids are cut to their active boxes first, which is what a reader
+    # returns, so the medium read back can be held bitwise to the one written
+    # and the film to the film of the same medium built directly.
+    nvdb_cells = [
+        ("flagship", dict(WDAS_SCENE, num_waves=4), FLAGSHIP_MAX_ITERS,
+         {"density": fog_sphere(radius=30.0, falloff=6.0)}),
+        ("fire", dict(FIRE_SCENE, num_waves=2), FIRE_MAX_ITERS, dict(zip(("density", "temperature"), (f_dens, f_temp)))),
+    ]
+    nvdb_launches = 0
+    for name, scene_cfg, max_iters, grids in nvdb_cells:
+        written = {}
+        for gname, g in grids.items():
+            data, origin = crop_to_active(g)
+            written[gname] = (data, origin, g.voxel_size, g.world_offset)
+        vol_path = os.path.join(OUT_DIR, f"{name}.nvdb")
+        nvdb.write_nvdb(vol_path, written)
+        cfg_path = os.path.join(OUT_DIR, f"{name}_scene.json")
+        with open(cfg_path, "w") as f:
+            json.dump(dict(scene_cfg, volume_path=f"{name}.nvdb"), f)  # relative to the scene file
+        png = os.path.join(OUT_DIR, f"cli_{name}_nvdb.png")
+        ckpt = os.path.join(OUT_DIR, f"cli_{name}_nvdb.npz")
+        for stale in (png, ckpt):
+            if os.path.exists(stale):
+                os.remove(stale)
+        reset_launch_counts(mk)
+        t0 = time.perf_counter()
+        rc = cli.main([cfg_path, png, "--max-iters", str(max_iters), "--checkpoint", ckpt])
+        cli_s = time.perf_counter() - t0
+        launches, plain = mk.WAVE_LAUNCHES, mk.PLAIN_WAVE_LAUNCHES + mk.PLAIN_LAUNCHES
+        nvdb_launches += launches
+        check(rc == 0 and launches == scene_cfg["num_waves"] and plain == 0 and mk.DENSE_WAVE_LAUNCHES == 0,
+              f"cli on {name}.nvdb: rc {rc}, {launches} wave launches, {plain} plain runs")
+        med = nvdb.read_nvdb_medium(vol_path)
+        for gname, got in (("density", med.density), ("temperature", med.temperature)):
+            if gname not in written:
+                check(got is None, f"{name}.nvdb: a {gname} grid appeared")
+                continue
+            data, origin, voxel, offset = written[gname]
+            check(got.device.type == "cuda" and np.array_equal(got.data.cpu().numpy(), data),
+                  f"{name}.nvdb: the {gname} array read back differs from the one written")
+            check(got.origin_ijk == origin and got.voxel_size == voxel and got.world_offset == tuple(offset),
+                  f"{name}.nvdb: the {gname} transform read back differs from the one written")
+        direct = Medium.from_grids(*(dense_grid_from_array(*written[k]) for k in written))
+        cfg_obj = loads_configuration(json.dumps(scene_cfg))
+        film_direct = render(Scene.from_config(cfg_obj, direct, max_iters=max_iters))
+        film_cli = torch.from_numpy(np.load(ckpt)["film"]).to(dev)
+        img = read_png(png)
+        same = bool(torch.equal(film_cli, film_direct))
+        print(f"cli on {name}.nvdb ({os.path.getsize(vol_path) / 1e6:.2f} MB, density "
+              f"{tuple(med.density.shape)}{', temperature ' + str(tuple(med.temperature.shape)) if med.has_temperature else ''}"
+              f"): {W}x{H}x{scene_cfg['num_waves']} in {cli_s:.2f} s with load, build and PNG; {launches} "
+              f"render_wave launches, no plain run; medium read back bitwise equal to the one written; film "
+              f"bitwise equal to the direct build's {same}; image max {img.max()}")
+        check(same, f"cli on {name}.nvdb: the film differs from the film of the medium built directly")
+        check(bool(torch.isfinite(film_cli).all()) and bool((film_cli[..., 3] == scene_cfg["num_waves"]).all()),
+              f"cli on {name}.nvdb: film not finite or wrong weights")
+        check(img.shape == (H, W, 3) and img.max() > 0, f"cli on {name}.nvdb: image missing or black")
+        del med, direct, film_direct, film_cli
 
     cli_cfg = dict(FIRE_SCENE, num_waves=4)
     cli_cfg["camera_parameters"] = dict(WDAS_SCENE["camera_parameters"],
@@ -654,7 +938,7 @@ def main():
     png = os.path.join(OUT_DIR, "cli_plume.png")
     if os.path.exists(png):
         os.remove(png)
-    mk.WAVE_LAUNCHES = mk.LAUNCHES = mk.PLAIN_WAVE_LAUNCHES = mk.PLAIN_LAUNCHES = 0
+    reset_launch_counts(mk)
     rc = cli.main([cfg_path, png, "--procedural", "plume", "--waves", "2"])
     img = read_png(png)
     print(f"cli: rc {rc}, {png} {img.shape} max {img.max()}, render_wave launches {mk.WAVE_LAUNCHES}, "
@@ -663,13 +947,32 @@ def main():
     check(mk.WAVE_LAUNCHES > 0 and mk.PLAIN_WAVE_LAUNCHES == 0 and mk.PLAIN_LAUNCHES == 0,
           "cli render did not go through the wave kernel")
 
+    # --profile: the trace is written and names the wave kernel
+    prof_dir = os.path.join(OUT_DIR, "cli_profile")
+    trace_path = os.path.join(prof_dir, "trace.json")
+    if os.path.exists(trace_path):
+        os.remove(trace_path)
+    rc = cli.main([cfg_path, png, "--procedural", "plume", "--waves", "2", "--profile", prof_dir])
+    check(rc == 0 and os.path.exists(trace_path), "cli --profile wrote no trace")
+    with open(trace_path) as f:
+        trace_text = f.read()
+    print(f"cli --profile: {trace_path} {len(trace_text) / 1e3:.1f} kB, names render_wave_kernel "
+          f"{trace_text.count('render_wave_kernel')} times")
+    check("render_wave_kernel" in trace_text, "the --profile trace does not name render_wave_kernel")
+    del trace_text
+
     # ------------------------------------------------------------------
     phase("8 summary")
     print("kernels: " + json.dumps({
         "render_wave": flag_counts["render_wave"], "render_wave_plain": flag_counts["render_wave_plain"],
-        "trace_lanes": trace_launches, "trace_lanes_plain": trace_plain}))
+        "trace_lanes": trace_launches, "trace_lanes_plain": trace_plain,
+        "render_wave_from_nvdb_scenes": nvdb_launches,
+        "render_wave_dense": dflag_counts["render_wave_dense"] + dcloud_counts["render_wave_dense"],
+        "trace_lanes_dense": dense_trace_launches}))
     print(f"flagship_rays_per_s {flag_rays_s:.1f} fire_8wide_rays_per_s {fire_rays_s[8]:.1f} "
-          f"fire_16wide_rays_per_s {fire_rays_s[16]:.1f} big_cloud_512_rays_per_s {cloud_rays_s:.1f}")
+          f"fire_16wide_rays_per_s {fire_rays_s[16]:.1f} big_cloud_512_rays_per_s {cloud_rays_s:.1f} "
+          f"flagship_unpacked_rays_per_s {dflag_rays_s:.1f} fire_unpacked_rays_per_s "
+          f"{fire_rays_s['unpacked']:.1f} big_cloud_512_unpacked_rays_per_s {dcloud_rays_s:.1f}")
     print(card)
     source = "volume_path_tracer_tpu_torch/csrc/trace_lanes.cu"
     replaces = "volume_path_tracer_tpu/render/megakernel.py:617"
@@ -680,8 +983,18 @@ def main():
          "library_ms": None},
         {"name": "trace_lanes", "route": "cuda", "source": source, "replaces": replaces,
          "launches": trace_launches, "max_abs_err": one_step_max_abs, "ms": kernel_ms,
-         "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None},
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
+        # The dense instantiations of the same two kernels (a medium without
+        # the fused table): launches on the unpacked main paths (flagship
+        # and 512^3 renders; the unpacked ray-batch path).
+        {"name": "render_wave_dense", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": dflag_counts["render_wave_dense"] + dcloud_counts["render_wave_dense"],
+         "max_abs_err": dense_wave_max_abs, "ms": dense_wave_rep["ms"], "plain_ms": dense_wave_plain_ms,
+         "bound_ms": dense_wave_rep["bound_ms"], "bound_by": dense_wave_rep["bound_by"], "library_ms": None},
+        {"name": "trace_lanes_dense", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": dense_trace_launches, "max_abs_err": dense_step_max_abs, "ms": dense_kernel_ms,
+         "plain_ms": dense_plain_ms, "bound_ms": dense_bound_ms, "bound_by": dense_bound_by,
+         "library_ms": None},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
@@ -768,7 +1081,7 @@ def variants(specs):
         scratch = torch.zeros_like(film)
         ms = kernel_device_ms(lambda: mk.render_wave(film=scratch, pixels=range(0, n), **kw), 10,
                               "render_wave_kernel")
-        tap = torch.zeros(flag_med.density_rows.shape[0], dtype=torch.uint8, device=dev)
+        tap = mk.new_row_tap(flag_med, flag.params, None)
         stat = mk.launch_stat(dev)
         mk.render_wave(film=scratch, pixels=range(0, n), row_tap=tap, stat=stat, **kw)
         st = mk.read_launch_stat(stat)

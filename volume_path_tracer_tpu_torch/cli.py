@@ -6,13 +6,19 @@ Usage:
 
 Renders on the CUDA device (--cpu for the CPU), wave by wave, with a
 progress line (percent, ETA, rays/s), an optional preview PNG at wave
-boundaries, wave-boundary checkpoints (resumed when present), and a graceful
-first ^C that finishes the wave and saves. Volumes: `--procedural
-{donut,sphere,plume}`; reading the scene's .nvdb file is not ported yet.
+boundaries or a live ANSI preview in the terminal (--live), wave-boundary
+checkpoints (resumed when present), a graceful first ^C that finishes the
+wave and saves, and an optional torch.profiler trace of the wave loop
+(--profile DIR).
+
+Volume loading: reads the scene's .nvdb through the package's own NanoVDB
+parser (grids/nvdb.py). `--procedural {donut,sphere,plume}` substitutes an
+asset-free volume (the reference renderer's generate_donut debug path).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -33,10 +39,34 @@ def _load_medium(cfg, procedural, device):
     if procedural == "plume":
         d, t = proc.fire_plume()
         return Medium.from_grids(d, t, device=device)
-    vlog.fatal(
-        f"reading .nvdb volumes ({cfg.volume_path!r}) is not ported yet; "
-        f"use --procedural {{donut,sphere,plume}}"
+    if procedural:
+        vlog.fatal(f"unknown procedural volume {procedural!r}")
+
+    if not os.path.exists(cfg.volume_path):
+        # The reference fatals on a missing or unreadable volume file
+        # (volume_grids.cpp:52 via vptFATAL).
+        vlog.fatal(
+            f"volume file {cfg.volume_path!r} not found "
+            f"(use --procedural for an asset-free volume)"
+        )
+    from .grids.nvdb import read_nvdb_medium
+
+    return read_nvdb_medium(cfg.volume_path, device=device)
+
+
+def downsample_srgb_u8(img_u8: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """[H, W, 3] uint8 -> [out_h, out_w, 3] uint8 on the image's device: the
+    live preview's downsample, so that only the painted cells cross to the
+    host. Bilinear with antialiasing (a triangle filter widened by the
+    shrink factor), as jax.image.resize(..., "linear") does in the JAX CLI;
+    the float result is truncated, so a last-bit difference at an integer
+    boundary could show as one u8 level (tests/test_torch_cli_tools.py holds
+    the two to that, and finds no differing pixel)."""
+    x = img_u8.to(torch.float32).permute(2, 0, 1)[None]
+    small = torch.nn.functional.interpolate(
+        x, size=(out_h, out_w), mode="bilinear", antialias=True, align_corners=False
     )
+    return small[0].permute(1, 2, 0).clamp(0, 255).to(torch.uint8)
 
 
 def main(argv=None):
@@ -52,6 +82,10 @@ def main(argv=None):
     )
     ap.add_argument("--preview", default=None, metavar="PNG",
                     help="write a preview PNG at wave boundaries")
+    ap.add_argument("--live", action="store_true",
+                    help="paint a live ANSI preview of the film in the "
+                         "terminal at each wave boundary (the raylib-window "
+                         "equivalent for headless hosts)")
     ap.add_argument("--checkpoint", default=None, metavar="NPZ",
                     help="wave-boundary checkpoint file (resumes if present)")
     ap.add_argument("--checkpoint-every-s", type=float, default=60.0,
@@ -63,7 +97,15 @@ def main(argv=None):
                     help="tracing step cap per ray")
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU (default: the CUDA device)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="shard rays over N devices (only 1 is supported yet)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the render to DIR")
     args = ap.parse_args(argv)
+    if args.mesh is not None and args.mesh != 1:
+        if args.mesh < 1:
+            vlog.fatal(f"--mesh {args.mesh}: the device count must be at least 1")
+        vlog.fatal("multi-GPU rendering is not ported yet (--mesh 1 or no flag renders on one device)")
 
     from .io.png import write_png
     from .render.renderer import Scene, render_wave_image
@@ -98,11 +140,77 @@ def main(argv=None):
     npix = scene.width * scene.height
     preview_every_s = 2.0
     last_preview = 0.0
+    last_paint = 0.0
     last_ckpt = time.monotonic()
+    # Truncated-lane counts accumulate on the device across waves and are
+    # read once at the end: a read per wave would wait for the device.
     ncap_total = torch.zeros((), dtype=torch.int64, device=device)
 
     def to_image(f):
         return film_to_srgb_u8(f).cpu().numpy()
+
+    live = None
+    if args.live:
+        from .io.term import TermPreview
+
+        live = TermPreview()
+        if not live.enabled:
+            vlog.warn("--live requires a TTY; disabled")
+            live = None
+
+    def write_preview(img):
+        nonlocal last_preview
+        if args.preview and time.monotonic() - last_preview >= preview_every_s:
+            write_png(args.preview, img, atomic=True)
+            last_preview = time.monotonic()
+
+    def live_draw(film_now, status):
+        # Tonemap and downsample to the terminal's cell grid on the device,
+        # then bring only the painted cells to the host.
+        out_h, out_w = live.geometry(scene.height, scene.width)
+        live.draw(downsample_srgb_u8(film_to_srgb_u8(film_now), out_h, out_w).cpu().numpy(), status)
+
+    # Mid-wave feedback (the reference GUI repaints at 5 FPS during a wave,
+    # main.cpp:101-132): when --chunk-pixels splits a wave, repaint the live
+    # preview or the progress line at chunk boundaries with the partial film.
+    # Throttle time stamps are taken AFTER the work: tonemap and PNG encode
+    # of a large film can exceed the interval itself, and a stamp taken
+    # before the work then degenerates to encoding at every chunk. Preview
+    # PNG writes get a longer interval than the cheap terminal repaint for
+    # the same reason.
+    chunk_cb = None
+    if args.chunk_pixels and (live is not None or args.preview):
+
+        def chunk_cb(done, total, film_now):
+            nonlocal last_paint
+            now = time.monotonic()
+            if now - last_paint < 0.2:  # 5 FPS cap, like the reference
+                return
+            status = f"[vpt] {tracker.format()} (wave {done * 100 // total}%)"
+            # Tonemap the whole film only when something consumes the pixels.
+            if args.preview and now - last_preview >= preview_every_s:
+                img = to_image(film_now)
+                if live is not None:
+                    live.draw(img, status)
+                else:
+                    print(f"\r{status}   ", end="", flush=True)
+                write_preview(img)
+            elif live is not None:
+                live_draw(film_now, status)
+            else:
+                print(f"\r{status}   ", end="", flush=True)
+            last_paint = time.monotonic()
+
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(args.profile, exist_ok=True)
+        prof = profile(activities=activities)
+        prof.start()
 
     with StopController() as stop:
         w = start_wave
@@ -110,19 +218,24 @@ def main(argv=None):
             w += 1
             t_wave = time.perf_counter()
             film, ncap_w = render_wave_image(
-                scene, w, film, args.chunk_pixels, return_ncap=True
+                scene, w, film, args.chunk_pixels, chunk_callback=chunk_cb, return_ncap=True
             )
             ncap_total = ncap_total + ncap_w
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             dt_wave = time.perf_counter() - t_wave
             tracker.advance(1)
-            print(f"\r[vpt] {tracker.format()} ({npix / dt_wave / 1e6:.2f} M rays/s)   ",
-                  end="", flush=True)
+            # Per-wave throughput: one wave = one camera ray per pixel.
+            status = f"[vpt] {tracker.format()} ({npix / dt_wave / 1e6:.2f} M rays/s)"
             stopping = stop.stop_at_next_wave or w == num_waves
+            if live is not None:
+                live_draw(film, status)
+            else:
+                print(f"\r{status}   ", end="", flush=True)
+            # The tonemap is gated on the preview throttle too, not only the
+            # PNG write: it brings the whole film to the host.
             if args.preview and not stopping and time.monotonic() - last_preview >= preview_every_s:
-                write_png(args.preview, to_image(film), atomic=True)
-                last_preview = time.monotonic()
+                write_preview(to_image(film))
             if args.checkpoint and (
                 stopping or time.monotonic() - last_ckpt >= args.checkpoint_every_s
             ):
@@ -132,6 +245,15 @@ def main(argv=None):
                 print(flush=True)
                 vlog.info(f"stopped at wave boundary {w}")
                 break
+
+    if prof is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        prof.stop()
+        trace_path = os.path.join(args.profile, "trace.json")
+        prof.export_chrome_trace(trace_path)
+        print(flush=True)
+        vlog.info(f"profiler trace written to {trace_path}")
 
     ncap = int(ncap_total)
     if ncap:

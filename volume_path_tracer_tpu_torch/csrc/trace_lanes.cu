@@ -17,6 +17,16 @@
 //   redirect, NEE ratio tracking with Russian roulette, resume/retire, the
 //   next brick/superbrick segment) -> ctr += 1.
 //
+// A medium without the fused table (Medium.from_grids(pack=False): a density
+// that changes every step cannot pay for a re-pack, and a large grid's table
+// is eight times the grid) goes through the same step with another fetch,
+// chosen by the template parameter kDense: at a collision the 8 corners of
+// the base voxel from the dense density array, each 0 outside it; at a
+// crossing the brick's 8-byte (brick, superbrick) majorant pair; at an
+// emissive collision the 8 corners of the dense temperature array through
+// its own transform. A lane reads only what its event needs. The corners and
+// weights are those of the packed row, summed in the same order.
+//
 // The step is written once (lane_step) and follows render/integrator.py
 // make_step operation by operation. The compiler contracts multiply-adds to
 // FMA and log1pf/sinf/cosf differ in the last ulp from the host's, so lanes
@@ -104,7 +114,9 @@ enum IParam {
   I_TX, I_TY, I_TZ, I_NPAIRS, I_WIDTH, NUM_IPARAMS
 };
 // I_EMISSION: 0 none, 1 temperature in columns 8..15 of 16-wide rows,
-// 2 temperature from its own corner table through its own transform.
+// 2 temperature from its own corner table through its own transform,
+// 3 (dense instantiations) temperature from its dense array through its own
+// transform.
 
 struct Params {
   float f[NUM_FPARAMS];
@@ -130,8 +142,20 @@ struct Args {
   const float* trows;
   int n_trows;
   const float* bb_pairs;
+  // Dense instantiations (dens not null; rows and trows are then unused):
+  // the density array [X, Y, Z], the majorant pairs [n_maj, 2] and, for an
+  // emissive medium, the temperature array [TX, TY, TZ].
+  const float* dens;
+  int n_dens;
+  const float* maj;
+  int n_maj;
+  const float* tdata;
+  int n_tdata;
   // Measuring instantiation only (tap not null): tap [n_rows + n_trows]
-  // bytes set to 1 for every row read; stat, or null: [2 + 2 * warps]:
+  // bytes set to 1 for every row read; in the dense instantiations tap
+  // [sectors(n_dens) + n_maj + sectors(n_tdata)], one byte for each 32-byte
+  // sector (8 floats) of the density array, each majorant pair and each
+  // sector of the temperature array; stat, or null: [2 + 2 * warps]:
   // warp-steps, thread-steps that did a lane's step, then each warp's first
   // and last %globaltimer reading.
   unsigned char* tap;
@@ -222,16 +246,65 @@ __device__ __forceinline__ float dot8(float4 a, float4 b, const float* w) {
   return s;
 }
 
+__device__ __forceinline__ float dot8(const float* v, const float* w) {
+  float s = v[0] * w[0];
+  s = s + v[1] * w[1];
+  s = s + v[2] * w[2];
+  s = s + v[3] * w[3];
+  s = s + v[4] * w[4];
+  s = s + v[5] * w[5];
+  s = s + v[6] * w[6];
+  s = s + v[7] * w[7];
+  return s;
+}
+
+// 32-byte sectors (8 floats) of an array of n_floats.
+__device__ __forceinline__ size_t sectors(int n_floats) { return ((size_t)n_floats + 7) >> 3; }
+
+// Trilinear sample of the dense array data [X, Y, Z] at base voxel (ix, iy,
+// iz) with weights w: the 8 corners in corner order, each 0 outside the
+// array (grids/grid.py gather_voxels), summed as dot8 sums a packed row.
+// Only corners inside the array are read. kTap: mark each read's sector at
+// tap + its index.
+template <bool kTap>
+__device__ __forceinline__ float dense_trilinear(const float* data, int X, int Y, int Z,
+                                                 int ix, int iy, int iz, const float* w,
+                                                 unsigned char* tap) {
+  float v[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int cx = ix + (c >> 2), cy = iy + ((c >> 1) & 1), cz = iz + (c & 1);
+    const bool inside = cx >= 0 && cx < X && cy >= 0 && cy < Y && cz >= 0 && cz < Z;
+    v[c] = 0.f;
+    if (inside) {
+      const int flat = (cx * Y + cy) * Z + cz;
+      v[c] = __ldg(data + flat);
+      if (kTap) tap[flat >> 3] = 1;
+    }
+  }
+  return dot8(v, w);
+}
+
+// A density-index-space point in the temperature grid's local coordinates,
+// through the temperature grid's own transform (sample_temperature_kelvin).
+__device__ __forceinline__ void temperature_local(const float* fp, float pcx, float pcy, float pcz,
+                                                  float& tlx, float& tly, float& tlz) {
+  const float voxel = fp[P_VOXEL];
+  const float tvox = fp[P_TVOXEL];
+  tlx = ((pcx * voxel + fp[P_DOFF]) - fp[P_TOFF]) / tvox - fp[P_TORIGIN];
+  tly = ((pcy * voxel + fp[P_DOFF + 1]) - fp[P_TOFF + 1]) / tvox - fp[P_TORIGIN + 1];
+  tlz = ((pcz * voxel + fp[P_DOFF + 2]) - fp[P_TOFF + 2]) / tvox - fp[P_TORIGIN + 2];
+}
+
 __device__ __forceinline__ void set_direction(Lane& L, float dx, float dy, float dz) {
   L.dx = dx; L.dy = dy; L.dz = dz;
   L.ix = safe_inv(dx); L.iy = safe_inv(dy); L.iz = safe_inv(dz);
 }
 
 // One step of one lane that is not DONE (integrator.make_step). kTap: also
-// mark each table row the lane reads in a.tap (rows of the fused table at
-// [0, n_rows), temperature rows after them), so a measurement can count the
-// distinct bytes a run needs.
-template <bool kTap>
+// mark in a.tap what the lane reads (see Args), so a measurement can count
+// the distinct bytes a run needs. kDense: the medium has no fused table.
+template <bool kTap, bool kDense>
 __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   const float* fp = a.p.f;
   const int* ip = a.p.i;
@@ -281,17 +354,35 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   const int ix = (int)floorf(lpx), iy = (int)floorf(lpy), iz = (int)floorf(lpz);
   const float fx = lpx - (float)ix, fy = lpy - (float)iy, fz = lpz - (float)iz;
   const bool valid = ix >= -1 && ix <= X - 1 && iy >= -1 && iy <= Y - 1 && iz >= -1 && iz <= Z - 1;
-  const int n_corner = (X + 1) * (Y + 1) * (Z + 1);
-  const int base = (clampi(ix + 1, 0, X) * (Y + 1) + clampi(iy + 1, 0, Y)) * (Z + 1) + clampi(iz + 1, 0, Z);
-  const int idx = clampi(collide ? base : n_corner + b_flat, 0, a.n_rows - 1);
-  const float4* rp = reinterpret_cast<const float4*>(a.rows + (size_t)idx * a.row_w);
-  if (kTap) a.tap[idx] = 1;
-  const float4 ra = __ldg(rp), rb = __ldg(rp + 1);
   float w[8];
-  tri_weights(fx, fy, fz, w);
-  const float rho = valid ? dot8(ra, rb, w) : 0.f;
-  const float bmaj = b_valid ? ra.x : 0.f;
-  const float smaj = b_valid ? ra.y : 0.f;
+  float rho, bmaj, smaj;
+  const float4* rp = nullptr;
+  if constexpr (kDense) {
+    // Per-corner validity here, per-row validity below: the same values,
+    // since a packed row holds its corners zero-padded. A crossing lane
+    // reads no corner and a colliding lane no majorant: these loads are the
+    // longest link of the step's chain.
+    tri_weights(fx, fy, fz, w);
+    rho = 0.f; bmaj = 0.f; smaj = 0.f;
+    if (collide) {
+      rho = dense_trilinear<kTap>(a.dens, X, Y, Z, ix, iy, iz, w, a.tap);
+    } else if (fetch && b_valid) {
+      const float2 m = __ldg(reinterpret_cast<const float2*>(a.maj) + b_flat);
+      bmaj = m.x; smaj = m.y;
+      if (kTap) a.tap[sectors(a.n_dens) + b_flat] = 1;
+    }
+  } else {
+    const int n_corner = (X + 1) * (Y + 1) * (Z + 1);
+    const int base = (clampi(ix + 1, 0, X) * (Y + 1) + clampi(iy + 1, 0, Y)) * (Z + 1) + clampi(iz + 1, 0, Z);
+    const int idx = clampi(collide ? base : n_corner + b_flat, 0, a.n_rows - 1);
+    rp = reinterpret_cast<const float4*>(a.rows + (size_t)idx * a.row_w);
+    if (kTap) a.tap[idx] = 1;
+    const float4 ra = __ldg(rp), rb = __ldg(rp + 1);
+    tri_weights(fx, fy, fz, w);
+    rho = valid ? dot8(ra, rb, w) : 0.f;
+    bmaj = b_valid ? ra.x : 0.f;
+    smaj = b_valid ? ra.y : 0.f;
+  }
 
   // ---- next segment (crossing lanes): brick or superbrick ----
   const float extra = (smaj - bmaj) * sigma_t * 64.f * voxel;
@@ -317,26 +408,28 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   const float p_n = fmaxf(1.f - p_a - p_s, 0.f);
   if (emission != 0 && cam_col) {
     float temp_adim;
-    if (emission == 1) {
+    if (!kDense && emission == 1) {
       const float4 ta = __ldg(rp + 2), tb = __ldg(rp + 3);
       temp_adim = valid ? dot8(ta, tb, w) : 0.f;
     } else {
-      // The temperature grid's own transform (sample_temperature_kelvin).
-      const float tvox = fp[P_TVOXEL];
-      const float tlx = ((pcx * voxel + fp[P_DOFF]) - fp[P_TOFF]) / tvox - fp[P_TORIGIN];
-      const float tly = ((pcy * voxel + fp[P_DOFF + 1]) - fp[P_TOFF + 1]) / tvox - fp[P_TORIGIN + 1];
-      const float tlz = ((pcz * voxel + fp[P_DOFF + 2]) - fp[P_TOFF + 2]) / tvox - fp[P_TORIGIN + 2];
+      float tlx, tly, tlz;
+      temperature_local(fp, pcx, pcy, pcz, tlx, tly, tlz);
       const int TX = ip[I_TX], TY = ip[I_TY], TZ = ip[I_TZ];
       const int jx = (int)floorf(tlx), jy = (int)floorf(tly), jz = (int)floorf(tlz);
       float tw[8];
       tri_weights(tlx - (float)jx, tly - (float)jy, tlz - (float)jz, tw);
-      const bool tvalid = jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1;
-      const int tbase = clampi(
-          (clampi(jx + 1, 0, TX) * (TY + 1) + clampi(jy + 1, 0, TY)) * (TZ + 1) + clampi(jz + 1, 0, TZ),
-          0, a.n_trows - 1);
-      const float4* tp = reinterpret_cast<const float4*>(a.trows + (size_t)tbase * 8);
-      if (kTap) a.tap[(size_t)a.n_rows + tbase] = 1;
-      temp_adim = tvalid ? dot8(__ldg(tp), __ldg(tp + 1), tw) : 0.f;
+      if constexpr (kDense) {
+        temp_adim = dense_trilinear<kTap>(a.tdata, TX, TY, TZ, jx, jy, jz, tw,
+                                          kTap ? a.tap + sectors(a.n_dens) + a.n_maj : nullptr);
+      } else {
+        const bool tvalid = jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1;
+        const int tbase = clampi(
+            (clampi(jx + 1, 0, TX) * (TY + 1) + clampi(jy + 1, 0, TY)) * (TZ + 1) + clampi(jz + 1, 0, TZ),
+            0, a.n_trows - 1);
+        const float4* tp = reinterpret_cast<const float4*>(a.trows + (size_t)tbase * 8);
+        if (kTap) a.tap[(size_t)a.n_rows + tbase] = 1;
+        temp_adim = tvalid ? dot8(__ldg(tp), __ldg(tp + 1), tw) : 0.f;
+      }
     }
     const float temp_k = temp_adim * fp[P_T_SCALE] + fp[P_T_OFFSET];
     const float tc = fminf(fmaxf(temp_k, 0.f), fp[P_TC_MAX]);
@@ -580,7 +673,7 @@ __device__ __forceinline__ unsigned long long global_timer() {
 // end in the film (render_wave_kernel); otherwise they are loaded from and
 // stored to the SoA state at their queue index (trace_lanes_kernel). A lane
 // runs until it is DONE or has taken a.max_steps steps in this launch.
-template <bool kWave, bool kTap>
+template <bool kWave, bool kTap, bool kDense>
 __device__ __forceinline__ void warp_loop(const Args& a) {
   const unsigned lane_id = threadIdx.x & 31u;
   const unsigned below = (1u << lane_id) - 1u;
@@ -628,7 +721,7 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
 
     // ---- one step of every lane the warp carries ----
     if (!idle) {
-      lane_step<kTap>(L, a);
+      lane_step<kTap, kDense>(L, a);
       --steps_left;
       if (L.mode == DONE || steps_left == 0) {
         if (kWave) {
@@ -667,32 +760,37 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
   }
 }
 
-template <bool kTap>
+template <bool kTap, bool kDense>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) render_wave_kernel(const Args a) {
-  warp_loop<true, kTap>(a);
+  warp_loop<true, kTap, kDense>(a);
 }
 
-template <bool kTap>
+template <bool kTap, bool kDense>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) trace_lanes_kernel(const Args a) {
-  warp_loop<false, kTap>(a);
+  warp_loop<false, kTap, kDense>(a);
 }
 
 using Kernel = void (*)(const Args);
 
+template <bool kDense>
 Kernel pick_kernel(bool wave, bool tap) {
-  if (wave) return tap ? render_wave_kernel<true> : render_wave_kernel<false>;
-  return tap ? trace_lanes_kernel<true> : trace_lanes_kernel<false>;
+  if (wave) return tap ? render_wave_kernel<true, kDense> : render_wave_kernel<false, kDense>;
+  return tap ? trace_lanes_kernel<true, kDense> : trace_lanes_kernel<false, kDense>;
+}
+
+Kernel pick_kernel(bool wave, bool tap, bool dense) {
+  return dense ? pick_kernel<true>(wave, tap) : pick_kernel<false>(wave, tap);
 }
 
 // Blocks the device holds resident for `kernel` (resident blocks per SM
 // times the SM count, both asked of the runtime and kept per device).
-cudaError_t resident_blocks(bool wave, bool tap, int device, int* blocks) {
-  static int resident[MAX_DEVICES][2][2];
+cudaError_t resident_blocks(bool wave, bool tap, bool dense, int device, int* blocks) {
+  static int resident[MAX_DEVICES][2][2][2];
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  int& kept = resident[device][wave][tap];
+  int& kept = resident[device][wave][tap][dense];
   if (kept == 0) {
     int per_sm = 0, sms = 0;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_kernel(wave, tap), THREADS, 0);
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_kernel(wave, tap, dense), THREADS, 0);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
@@ -711,21 +809,25 @@ int launch(bool wave, int device, void* stream, const Args& a) {
   if (err != cudaSuccess) return (int)err;
   if (a.n <= 0) return 0;
   const bool tap = a.tap != nullptr;
+  const bool dense = a.dens != nullptr;
   int blocks = 0;
-  err = resident_blocks(wave, tap, device, &blocks);
+  err = resident_blocks(wave, tap, dense, device, &blocks);
   if (err != cudaSuccess) return (int)err;
   const int per_block = THREADS * QUEUE_PER_THREAD;
   const int wanted = (int)(((long long)a.n + per_block - 1) / per_block);
   if (wanted < blocks) blocks = wanted;
-  pick_kernel(wave, tap)<<<blocks, THREADS, 0, s>>>(a);
+  pick_kernel(wave, tap, dense)<<<blocks, THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 void set_tables(Args& a, const float* rows, int n_rows, int row_w, const float* trows, int n_trows,
-                const float* bb_pairs, const float* fp, const int* ip, int* scratch,
+                const float* bb_pairs, const float* dens, int n_dens, const float* maj, int n_maj,
+                const float* tdata, int n_tdata, const float* fp, const int* ip, int* scratch,
                 unsigned char* tap, unsigned long long* stat) {
   a.rows = rows; a.n_rows = n_rows; a.row_w = row_w;
   a.trows = trows; a.n_trows = n_trows; a.bb_pairs = bb_pairs;
+  a.dens = dens; a.n_dens = n_dens; a.maj = maj; a.n_maj = n_maj;
+  a.tdata = tdata; a.n_tdata = n_tdata;
   a.scratch = scratch; a.tap = tap; a.stat = stat;
   for (int k = 0; k < NUM_FPARAMS; ++k) a.p.f[k] = fp[k];
   for (int k = 0; k < NUM_IPARAMS; ++k) a.p.i[k] = ip[k];
@@ -742,8 +844,11 @@ int vpt_num_iparams() { return NUM_IPARAMS; }
 // cudaError_t (0 on success). fp / ip are HOST arrays in the FParam / IParam
 // layout; they travel in the kernel's arguments. rows: [n_rows, row_w]
 // float32 (row_w 8 or 16), trows: [n_trows, 8] or null, bb_pairs:
-// [npairs, 6] or null, scratch: 3 ints on the device, zeroed here on the
-// stream. tap: null, or given for the measuring instantiation, and then
+// [npairs, 6] or null. A medium without the fused table passes rows null
+// and instead dens: [n_dens] float32 (the density array, flat), maj:
+// [n_maj, 2] (brick, superbrick) majorant pairs, tdata: [n_tdata] (the
+// temperature array, flat) or null. scratch: 3 ints on the device, zeroed
+// here on the stream. tap: null, or given for the measuring instantiation, and then
 // stat may be given too (see Args).
 
 // Advance every lane of (sf [21, n] float32, si [3, n] int32, SoA) until
@@ -751,12 +856,15 @@ int vpt_num_iparams() { return NUM_IPARAMS; }
 int vpt_trace_lanes(int device, void* stream, float* sf, int* si, const int* pids, const int* streams,
                     int n, int max_steps, const float* rows, int n_rows, int row_w,
                     const float* trows, int n_trows, const float* bb_pairs,
+                    const float* dens, int n_dens, const float* maj, int n_maj,
+                    const float* tdata, int n_tdata,
                     const float* fp, const int* ip, int* scratch,
                     unsigned char* tap, unsigned long long* stat) {
   Args a{};
   a.sf = sf; a.si = si; a.pids = pids; a.streams = streams;
   a.n = n; a.max_steps = max_steps;
-  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, fp, ip, scratch, tap, stat);
+  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
+             fp, ip, scratch, tap, stat);
   return launch(false, device, stream, a);
 }
 
@@ -768,24 +876,27 @@ int vpt_render_wave(int device, void* stream, float* film, const int* pids, int 
                     unsigned int stream_word, int max_steps,
                     const float* rows, int n_rows, int row_w,
                     const float* trows, int n_trows, const float* bb_pairs,
+                    const float* dens, int n_dens, const float* maj, int n_maj,
+                    const float* tdata, int n_tdata,
                     const float* fp, const int* ip, int* scratch,
                     unsigned char* tap, unsigned long long* stat) {
   Args a{};
   a.film = reinterpret_cast<float4*>(film); a.pids = pids; a.start = start;
   a.n = n; a.max_steps = max_steps; a.stream = stream_word;
-  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, fp, ip, scratch, tap, stat);
+  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
+             fp, ip, scratch, tap, stat);
   return launch(true, device, stream, a);
 }
 
 // Resident blocks of the two production kernels on `device` (see
-// resident_blocks), THREADS, and the device's SM count.
-int vpt_occupancy(int device, int* wave_blocks, int* trace_blocks, int* threads, int* sms) {
+// resident_blocks), packed or dense, THREADS, and the device's SM count.
+int vpt_occupancy(int device, int dense, int* wave_blocks, int* trace_blocks, int* threads, int* sms) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   *threads = THREADS;
-  err = resident_blocks(true, false, device, wave_blocks);
+  err = resident_blocks(true, false, dense != 0, device, wave_blocks);
   if (err != cudaSuccess) return (int)err;
-  err = resident_blocks(false, false, device, trace_blocks);
+  err = resident_blocks(false, false, dense != 0, device, trace_blocks);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }

@@ -43,6 +43,10 @@ class DenseGrid:
         off = torch.tensor(self.world_offset, dtype=torch.float32, device=p_world.device)
         return (p_world - off) / self.voxel_size
 
+    def index_to_world(self, p_index: torch.Tensor) -> torch.Tensor:
+        off = torch.tensor(self.world_offset, dtype=torch.float32, device=p_index.device)
+        return p_index * self.voxel_size + off
+
 
 def dense_grid_from_array(
     data,

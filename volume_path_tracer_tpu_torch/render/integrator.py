@@ -172,6 +172,7 @@ def inv_voxel(voxel_size: float) -> float:
 class TravOut(NamedTuple):
     """Per-iteration traversal results. All fields are [N] or [N, 3]."""
 
+    collide: torch.Tensor  # collision sampled inside the current segment
     exited: torch.Tensor  # crossed past the bbox exit
     fetch: torch.Tensor  # crossing lanes that install a fresh segment
     t_cand: torch.Tensor  # free-flight candidate parameter
@@ -182,6 +183,9 @@ class TravOut(NamedTuple):
     sigma_maj: torch.Tensor  # current segment's majorant sigma (raw)
     sig_seg_f: torch.Tensor  # freshly derived segment majorant (fetch lanes)
     t_seg_f: torch.Tensor  # freshly derived segment end (fetch lanes)
+    use_super: torch.Tensor  # fetch used the superbrick level
+    cell_lo: torch.Tensor  # [N,3] DDA cell bounds (debug channel)
+    cell_sz: torch.Tensor  # [N] DDA cell size (debug channel)
     real_col: torch.Tensor  # collide with rho > 0
     zero_col: torch.Tensor  # collide with rho <= 0 (silent advance)
     temp_adim: Optional[torch.Tensor] = None  # temperature from 16-wide rows
@@ -259,9 +263,10 @@ def make_traversal(medium: Medium, params: IntegratorParams):
 
         rho_pos = rho > 0.0
         return TravOut(
-            exited=exited, fetch=fetch, t_cand=t_cand, t_next=t_next,
+            collide=collide, exited=exited, fetch=fetch, t_cand=t_cand, t_next=t_next,
             p_col=p_col, rho=rho, rsig=rsig, sigma_maj=sig_seg,
-            sig_seg_f=sig_seg_f, t_seg_f=t_seg_f, real_col=collide & rho_pos,
+            sig_seg_f=sig_seg_f, t_seg_f=t_seg_f, use_super=use_super,
+            cell_lo=cell_lo, cell_sz=cell_sz, real_col=collide & rho_pos,
             zero_col=collide & (~rho_pos), temp_adim=temp_adim,
         )
 
@@ -296,8 +301,17 @@ def light_constants(params: IntegratorParams, device="cpu"):
     return wi.to(device), Li.to(device), L_inf.to(device)
 
 
-def make_step(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor]):
-    """Build the single-iteration step: step(state, uniforms [N, 4]) -> state."""
+def make_step(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
+              collect_debug: bool = False):
+    """Build the single-iteration step: step(state, uniforms [N, 4]) -> state.
+
+    collect_debug=True makes step return (state, dbg), where dbg is a dict of
+    per-lane tensors saying what happened this iteration (collision flags,
+    density, event kind, DDA cell, segment bounds), under the JAX step's
+    keys: the channel behind the single-ray tools (tools/trace.py), which so
+    instrument the real step and not a second implementation. The default
+    path builds no dictionary. The CUDA kernel has no such channel: the tools
+    run this plain step on one ray."""
     dgrid = medium.density
     dev = dgrid.device
     O = _f32(dgrid.origin_ijk, dev)
@@ -430,7 +444,7 @@ def make_step(medium: Medium, params: IntegratorParams, bb_table: Optional[torch
         t_seg_new = torch.where(fetch, tr.t_seg_f, st.t_seg)
         t_seg_new = torch.where(new_ray, t_new, t_seg_new)
 
-        return RayState(
+        st_new = RayState(
             o=o_new, d=d_new, t=t_new, t_exit=t_exit_new,
             sig_seg=sig_seg_new, t_seg=t_seg_new, L=L_new, wscore=wscore_new,
             depth=depth_new, mode=mode_new, terminated=st.terminated | cam_abs,
@@ -438,6 +452,24 @@ def make_step(medium: Medium, params: IntegratorParams, bb_table: Optional[torch
             T_ray=torch.where(start_shadow_ok, 1.0, T_ray_new),
             phase_val=phase_val_new, ctr=st.ctr + 1,
         )
+        if not collect_debug:
+            return st_new
+        dbg = dict(
+            active=active, in_cam=in_cam, in_shw=in_shw,
+            cell_lo=tr.cell_lo, cell_sz=tr.cell_sz, use_super=tr.use_super,
+            maj=sigma_maj / sigma_t if sigma_t else sigma_maj,
+            sigma_maj=sigma_maj,
+            t0=st.t, t_seg_end=torch.where(fetch, tr.t_seg_f, st.t_seg),
+            t_cand=t_cand, fetch=fetch,
+            collide=tr.collide, exited=exited, stepped=fetch,
+            p_col=p_col, rho=rho, zero_col=zero_col,
+            cam_null=cam_null, cam_abs=cam_abs, cam_scat=cam_scat,
+            p_a=p_a, p_s=p_s, p_n=p_n,
+            shw_col=shw_col, T_ray=T_ray_new, shadow_finish=shadow_finish,
+            start_shadow=start_shadow_ok, resume=resume_ok,
+            new_dir=new_dir, becomes_done_inf=becomes_done_inf,
+        )
+        return st_new, dbg
 
     return step
 

@@ -5,7 +5,10 @@ megakernel.py: the event-step kernel of make_kernel, launched by
 _pallas_step_call from trace_rays_fused) together with its XLA prestep
 (make_prestep / fetch_rows). csrc/trace_lanes.cu holds one step function and
 one warp loop (persistent warps that refill retired lanes from a queue) and
-two kernels around them; its notes say what bounds them on the card.
+two kernels around them; its notes say what bounds them on the card. Each
+kernel has a second instantiation for a medium without the fused table
+(Medium.from_grids(pack=False)): the same step, reading the dense density
+array, the majorant pairs and the dense temperature array.
 
   render_wave        the renderer's wave: one launch makes each pixel's
                      camera ray, traces it and adds its sample to the film.
@@ -22,7 +25,9 @@ two kernels around them; its notes say what bounds them on the card.
                      integrator.trace_rays.
 
 WAVE_LAUNCHES, LAUNCHES, PLAIN_WAVE_LAUNCHES and PLAIN_LAUNCHES count the
-launches of each, so a run can show which one its main path went through.
+launches of each, and DENSE_WAVE_LAUNCHES / DENSE_LAUNCHES those of the dense
+instantiations among them, so a run can show which one its main path went
+through.
 
 The kernels are compiled with nvcc at first use, from the checkout's own
 source, into volume_path_tracer_tpu_torch/_build/ (one library per source
@@ -79,6 +84,10 @@ WAVE_LAUNCHES = 0  # render_wave_kernel launches (render_wave on CUDA tensors)
 LAUNCHES = 0  # trace_lanes_kernel launches (trace_lanes on CUDA tensors)
 PLAIN_WAVE_LAUNCHES = 0  # plain-version runs (render_wave_plain)
 PLAIN_LAUNCHES = 0  # plain-version runs (trace_lanes_plain)
+# Those of WAVE_LAUNCHES / LAUNCHES that ran the dense instantiation (a medium
+# without the fused table).
+DENSE_WAVE_LAUNCHES = 0
+DENSE_LAUNCHES = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "trace_lanes.cu")
@@ -229,10 +238,12 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        tables = [p, i, i, p, i, p, p, p, p, p, p]  # rows .. stat
+        # rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj,
+        # n_maj, tdata, n_tdata, fp, ip, scratch, tap, stat
+        tables = [p, i, i, p, i, p, p, i, p, i, p, i, p, p, p, p, p]
         lib.vpt_trace_lanes.argtypes = [i, p, p, p, p, p, i, i, *tables]
         lib.vpt_render_wave.argtypes = [i, p, p, p, i, i, u, i, *tables]
-        lib.vpt_occupancy.argtypes = [i, p, p, p, p]
+        lib.vpt_occupancy.argtypes = [i, i, p, p, p, p]
         for fn in (lib.vpt_trace_lanes, lib.vpt_render_wave, lib.vpt_occupancy,
                    lib.vpt_num_fparams, lib.vpt_num_iparams):
             fn.restype = i
@@ -247,12 +258,13 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} failed: {_library().vpt_error_string(err).decode()}")
 
 
-def occupancy(device: torch.device):
+def occupancy(device: torch.device, dense: bool = False):
     """(resident blocks of render_wave_kernel, of trace_lanes_kernel, threads
-    per block, SM count) on `device`, as the CUDA runtime computes them. A
-    launch starts at most the resident blocks."""
+    per block, SM count) on `device`, as the CUDA runtime computes them, for
+    the packed or the dense instantiations. A launch starts at most the
+    resident blocks."""
     out = [ctypes.c_int(0) for _ in range(4)]
-    err = _library().vpt_occupancy(device.index or 0, *(ctypes.byref(v) for v in out))
+    err = _library().vpt_occupancy(device.index or 0, int(dense), *(ctypes.byref(v) for v in out))
     _raise_on(err, "occupancy query")
     return tuple(v.value for v in out)
 
@@ -326,7 +338,8 @@ class KernelConstants(NamedTuple):
     ip: np.ndarray  # int32, enum IParam order
     pairs: Optional[torch.Tensor]  # blackbody pair LUT [npairs, 6], emissive media
     scratch: torch.Tensor  # int32 [3]: queue head, n_capped, largest lane counter
-    emission: int
+    emission: int  # the kernel's I_EMISSION
+    dense: bool  # no fused table: the dense instantiations
 
 
 # key -> (weak references to the keyed objects, KernelConstants)
@@ -352,12 +365,14 @@ def kernel_constants(
 
     dev = medium.device
     rows = medium.density_rows
-    if rows is None:
-        raise ValueError(
-            "the CUDA tracer needs the fused row table: build the medium "
-            "with Medium.from_grids(..., pack=True)"
-        )
-    if rows.dtype != torch.float32 or not rows.is_contiguous() or rows.shape[1] not in (8, 16) \
+    dense = rows is None
+    if dense:
+        _check_dense(medium.density.data, "the density array", dev)
+        maj = medium.majorants.rows
+        if maj.dtype != torch.float32 or maj.dim() != 2 or maj.shape[1] != 2 or maj.device != dev \
+                or not maj.is_contiguous() or maj.data_ptr() % 8:
+            raise ValueError(f"majorants.rows must be a contiguous float32 [NB, 2] table on {dev}")
+    elif rows.dtype != torch.float32 or not rows.is_contiguous() or rows.shape[1] not in (8, 16) \
             or rows.data_ptr() % 16 or rows.shape[0] >= 2**31:
         raise ValueError("density_rows must be a contiguous, 16-byte aligned "
                          "float32 [R < 2^31, 8 or 16] table")
@@ -366,7 +381,11 @@ def kernel_constants(
         if bb_table is None:
             raise ValueError("an emissive medium needs the blackbody table")
         pairs = blackbody_pairs(torch.as_tensor(bb_table, dtype=torch.float32, device=dev)).contiguous()
-        emission = 1 if rows.shape[1] >= 16 else 2
+        if dense:
+            emission = 3
+            _check_dense(medium.temperature.data, "the temperature array", dev)
+        else:
+            emission = 1 if rows.shape[1] >= 16 else 2
         trows = medium.temperature_rows
         if emission == 2 and (trows is None or trows.device != dev or not trows.is_contiguous()
                               or trows.data_ptr() % 16 or trows.shape[0] >= 2**31):
@@ -377,11 +396,20 @@ def kernel_constants(
                                        use_jitter, imaging_ratio)
     consts = KernelConstants(
         fp=_flatten(fields_f, np.float32), ip=_flatten(fields_i, np.int32), pairs=pairs,
-        scratch=torch.zeros(3, dtype=torch.int32, device=dev), emission=emission,
+        scratch=torch.zeros(3, dtype=torch.int32, device=dev), emission=emission, dense=dense,
     )
     _CONSTANTS[key] = (tuple(None if o is None else weakref.ref(o) for o in objs), consts)
     weakref.finalize(medium, _CONSTANTS.pop, key, None)
     return consts
+
+
+def _check_dense(data: torch.Tensor, name: str, device):
+    """A dense grid array as the dense instantiations read it: 32-bit voxel
+    indices, as row indices are for a table."""
+    if data.dtype != torch.float32 or data.dim() != 3 or data.device != device \
+            or not data.is_contiguous() or data.numel() >= 2**31:
+        raise ValueError(f"{name} must be a contiguous float32 [X, Y, Z] tensor of fewer "
+                         f"than 2^31 voxels on {device}")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -398,24 +426,74 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+SECTOR_FLOATS = 8  # a 32-byte sector of a dense array, the unit the dense tap marks
+
+
+def tap_layout(medium: Medium, emission: int):
+    """What a measuring launch marks in row_tap, in order, as (what, marks,
+    bytes a mark stands for). `emission` is KernelConstants.emission. With
+    the fused table: its rows, then the temperature corner rows if read.
+    Without it: the 32-byte sectors of the density array, the majorant
+    pairs, then the sectors of the temperature array if read."""
+    rows = medium.density_rows
+    if rows is not None:
+        out = [("rows", rows.shape[0], rows.shape[1] * 4)]
+        if emission == 2:
+            out.append(("temperature rows", medium.temperature_rows.shape[0], 32))
+        return out
+    out = [("density sectors", -(-medium.density.data.numel() // SECTOR_FLOATS), 32),
+           ("majorant pairs", medium.majorants.rows.shape[0], 8)]
+    if emission == 3:
+        out.append(("temperature sectors", -(-medium.temperature.data.numel() // SECTOR_FLOATS), 32))
+    return out
+
+
+def new_row_tap(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor]) -> torch.Tensor:
+    """A zeroed `row_tap` tensor for a measuring launch on this scene."""
+    emission = kernel_constants(medium, params, bb_table).emission
+    return torch.zeros(sum(n for _, n, _ in tap_layout(medium, emission)), dtype=torch.uint8,
+                       device=medium.device)
+
+
+def read_row_tap(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
+                 row_tap: torch.Tensor):
+    """[(what, marks set, marks in all, bytes the set marks stand for)] of a
+    tap a measuring launch filled."""
+    emission = kernel_constants(medium, params, bb_table).emission
+    out, at = [], 0
+    for what, n, nbytes in tap_layout(medium, emission):
+        hit = int(row_tap[at:at + n].sum())
+        out.append((what, hit, n, hit * nbytes))
+        at += n
+    return out
+
+
 def _table_args(medium: Medium, consts: KernelConstants, dev, row_tap, stat):
     """The arguments both launches end with (rows .. stat), checked."""
     lib = _library()
     if consts.fp.size != lib.vpt_num_fparams() or consts.ip.size != lib.vpt_num_iparams():
         raise RuntimeError("kernel parameter layout mismatch with csrc/trace_lanes.cu")
-    rows = medium.density_rows
-    trows = medium.temperature_rows if consts.emission == 2 else None
-    if rows.device != dev:
-        raise ValueError(f"the medium lives on {rows.device}, the lanes on {dev}")
-    n_trows = trows.shape[0] if trows is not None else 0
+    if medium.device != dev:
+        raise ValueError(f"the medium lives on {medium.device}, the lanes on {dev}")
     if stat is not None and row_tap is None:
         raise ValueError("stat is filled by the measuring launch: pass row_tap too")
     if row_tap is not None:
-        _check(row_tap, "row_tap", torch.uint8, (rows.shape[0] + n_trows,), dev)
+        _check(row_tap, "row_tap", torch.uint8,
+               (sum(n for _, n, _ in tap_layout(medium, consts.emission)),), dev)
     if stat is not None:
         _check(stat, "stat", torch.int64, (stat_size(dev),), dev)
-    return (rows.data_ptr(), rows.shape[0], rows.shape[1], _ptr(trows), n_trows,
-            _ptr(consts.pairs), consts.fp.ctypes.data, consts.ip.ctypes.data,
+    if consts.dense:
+        dens, maj = medium.density.data, medium.majorants.rows
+        tdata = medium.temperature.data if consts.emission == 3 else None
+        tables = (None, 0, 0, None, 0, _ptr(consts.pairs), dens.data_ptr(), dens.numel(),
+                  maj.data_ptr(), maj.shape[0], _ptr(tdata), tdata.numel() if tdata is not None else 0)
+    else:
+        rows = medium.density_rows
+        trows = medium.temperature_rows if consts.emission == 2 else None
+        tables = (rows.data_ptr(), rows.shape[0], rows.shape[1], _ptr(trows),
+                  trows.shape[0] if trows is not None else 0, _ptr(consts.pairs),
+                  None, 0, None, 0, None, 0)
+    return (*tables, consts.fp.ctypes.data, consts.ip.ctypes.data,
             consts.scratch.data_ptr(), _ptr(row_tap), _ptr(stat))
 
 
@@ -433,9 +511,8 @@ def trace_lanes(
     it runs trace_lanes_plain. The kernel works in place; the state is
     cloned first only because this contract returns new tensors and leaves
     its arguments as they were. For measurement (CUDA only): row_tap, a
-    zeroed uint8 [R + R_t] tensor in which the launch marks every row of
-    density_rows (then of temperature_rows, if read) that it reads, and with
-    it stat, a zeroed launch_stat tensor.
+    zeroed new_row_tap tensor in which the launch marks what it reads of the
+    medium (tap_layout), and with it stat, a zeroed launch_stat tensor.
     """
     if sf.device.type == "cpu":
         return trace_lanes_plain(medium, params, bb_table, sf, si, pixel_ids, streams, max_steps)
@@ -458,8 +535,9 @@ def trace_lanes(
         sf.data_ptr(), si.data_ptr(), pids.data_ptr(), strm.data_ptr(), n, int(max_steps), *tables,
     )
     _raise_on(err, "trace_lanes launch")
-    global LAUNCHES
+    global LAUNCHES, DENSE_LAUNCHES
     LAUNCHES += 1
+    DENSE_LAUNCHES += consts.dense
     return sf, si
 
 
@@ -517,8 +595,9 @@ def render_wave(
         film.data_ptr(), _ptr(pids), start, n, int(stream) & 0xFFFFFFFF, int(steps), *tables,
     )
     _raise_on(err, "render_wave launch")
-    global WAVE_LAUNCHES
+    global WAVE_LAUNCHES, DENSE_WAVE_LAUNCHES
     WAVE_LAUNCHES += 1
+    DENSE_WAVE_LAUNCHES += consts.dense
     # The scratch belongs to the next launch too: hand out a copy.
     out = consts.scratch[1:3].clone()
     return out[1], out[0]
@@ -544,9 +623,9 @@ def simt_efficiency(steps: torch.Tensor, group: int = 32) -> float:
 
 def stat_size(device: torch.device) -> int:
     """Length of a launch_stat tensor: two counters, then two clock readings
-    for each warp the card can hold resident."""
-    wave_blocks, trace_blocks, threads, _ = occupancy(device)
-    return 2 + 2 * max(wave_blocks, trace_blocks) * threads // 32
+    for each warp the card can hold resident (of any instantiation)."""
+    blocks = [b for dense in (False, True) for b in occupancy(device, dense)[:2]]
+    return 2 + 2 * max(blocks) * occupancy(device)[2] // 32
 
 
 def launch_stat(device: torch.device) -> torch.Tensor:
