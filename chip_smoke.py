@@ -43,6 +43,17 @@ Phases, each stopping the run with a non-zero exit on failure:
               here (the flagship stand-in and the fire plume, 256x256): the
               medium read back and the film against the direct build; then
               the procedural plume, and once more with --profile
+  9. train    the gradient path (after phase 8's summary lines): the record
+              kernel's radiance bitwise against trace_lanes_kernel on the
+              flagship wave (packed and dense); on the three small scenes,
+              with media rebuilt by medium_with_params, packed and dense,
+              k_walks 16 and 0, the replay kernel's gradient grids against
+              the plain replay; the full 131,072-lane density step: both
+              kernels against their plain versions, their times and bounds,
+              and the accounting invariant on every lane; then bench.py's
+              three train cells (density packed and unpacked, joint density
+              and temperature) through make_train_step: train rays/s, the
+              step's device time by kernel, launches and peak memory
 
 The line before the last is the kernels' JSON record (launches on the main
 path, error against the plain version, times and bound); the last line is
@@ -162,13 +173,13 @@ def cuda_ms(fn, reps):
 def kernel_device_ms(fn, reps, kernel_name):
     """Mean device milliseconds of the kernels named `kernel_name` over
     `reps` calls of fn(), from CUPTI kernel records (no wrapper work, no
-    host time). CUPTI now and then drops records of a window's first
-    launches: a window that kept fewer than all is taken once more, and the
-    mean is over the records kept, at least half."""
+    host time). CUPTI now and then drops records of a window's launches: a
+    window that kept fewer than all is taken again, up to three windows, and
+    the mean is over the records kept, at least half."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -305,6 +316,8 @@ def crop_to_active(grid):
 def reset_launch_counts(mk):
     mk.WAVE_LAUNCHES = mk.LAUNCHES = mk.PLAIN_WAVE_LAUNCHES = mk.PLAIN_LAUNCHES = 0
     mk.DENSE_WAVE_LAUNCHES = mk.DENSE_LAUNCHES = 0
+    mk.RECORD_LAUNCHES = mk.REPLAY_LAUNCHES = mk.PLAIN_RECORD_LAUNCHES = mk.PLAIN_REPLAY_LAUNCHES = 0
+    mk.DENSE_RECORD_LAUNCHES = mk.DENSE_REPLAY_LAUNCHES = 0
 
 
 def profile_pass(scene, png_path, best_s, what):
@@ -399,6 +412,334 @@ def main_path(scene, passes, png_path, what, card):
     check(finite and weights_ok, f"{what}: film is not finite or has wrong weights")
     check(img.max() > 0, f"{what}: image is black")
     return times, rays_s, ncap, counts
+
+
+# bench.py's train cells (bench.py:287-304, :336-352), rebuilt on the port:
+# 128x128 pixels, 8 samples a step (131,072 lanes), 1024 steps a lane,
+# chains of 4 device-resident steps, best of 3 chains.
+TRAIN_SIZE = 128
+TRAIN_K = 8
+TRAIN_ITERS = 1024
+TRAIN_CHAIN = 4
+# Float operations per replay lane-step, counted from replay_step in
+# csrc/trace_lanes.cu beside OPS_PER_LANE_STEP's traversal: the suffix and
+# score weight, ratio tracking, the 8 corner weights times the event weight.
+OPS_PER_REPLAY_STEP = 200
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def device_split(prof, wall_s):
+    """(record ms, replay ms, other kernels ms, device busy share, the
+    device events) from a profile: CUPTI kernel records only, without the
+    device-side ranges of user annotations (Optimizer.step's would count
+    its kernels twice)."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in dev)
+    rec = sum(e.self_device_time_total for e in dev if "trace_lanes_kernel" in e.key and "true>" in e.key)
+    rep = sum(e.self_device_time_total for e in dev if "replay_lanes_kernel" in e.key)
+    return rec / 1e3, rep / 1e3, (total - rec - rep) / 1e3, total / 1e6 / wall_s, dev
+
+
+def train_phase(card, dev):
+    """Phase 9 on the CUDA device `dev`; returns the record and replay
+    kernels' entries of the kernels line."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from volume_path_tracer_tpu_torch.diff import inverse as inv
+    from volume_path_tracer_tpu_torch.diff import prb
+    from volume_path_tracer_tpu_torch.grids.grid import dense_grid_from_array
+    from volume_path_tracer_tpu_torch.grids.procedural import fire_plume, fog_sphere
+    from volume_path_tracer_tpu_torch.models.camera import Camera
+    from volume_path_tracer_tpu_torch.models.medium import Medium
+    from volume_path_tracer_tpu_torch.render import integrator as integ
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+    from volume_path_tracer_tpu_torch.render.renderer import Scene, pixel_coords
+    from volume_path_tracer_tpu_torch.utils import rng as vrng
+    from volume_path_tracer_tpu_torch.utils.config import CameraParameters, loads_configuration
+    from volume_path_tracer_tpu_torch.utils.spectral import blackbody_xyz_table
+
+    K = prb.DEFAULT_K_WALKS
+
+    # (a) the record kernel against trace_lanes_kernel on the flagship wave
+    flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
+    for pack in (True, False):
+        med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=pack)
+        sc = Scene.from_config(flag_cfg, med, max_iters=FLAGSHIP_MAX_ITERS)
+        W, H = sc.width, sc.height
+        pids = torch.arange(W * H, dtype=torch.int32, device=dev)
+        stream = vrng.mix_stream(sc.seed, 1)
+        u_jit = vrng.counter_uniforms(pids, stream, mk.JITTER_COUNTER, 2)
+        o_w, d_w = sc.camera.generate_rays(torch.from_numpy(pixel_coords(W, H)).to(dev), u_jit * 0.5)
+        ray_args = (med, sc.params, None, o_w, d_w, pids, stream)
+        L_t, _, _ = mk.trace_rays_fused(*ray_args)
+        L_r, tf = mk.record_lanes(*ray_args, K)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(L_r, L_t))
+        walks = int((tf != 0).sum())
+        line = (f"record kernel, flagship wave ({W * H} lanes, {'packed' if pack else 'dense'}): radiance bitwise "
+                f"equal to trace_lanes_kernel's {same}; {walks} walks recorded in {K} slots a lane")
+        if pack:
+            rec_ms = kernel_device_ms(lambda: mk.record_lanes(*ray_args, K), 10, "trace_lanes_kernel")
+            tl_ms = kernel_device_ms(lambda: mk.trace_rays_fused(*ray_args), 10, "trace_lanes_kernel")
+            line += f"; record kernel {rec_ms:.4f} ms, trace_lanes_kernel {tl_ms:.4f} ms (device time, mean of 10)"
+        print(line + f" on {card}")
+        check(same, f"the record kernel's flagship radiance differs from trace_lanes_kernel's ({'packed' if pack else 'dense'})")
+        check(walks > 0, "the record kernel recorded no walk on the flagship wave")
+    del med, sc, L_t, L_r, tf
+
+    # (b) the replay kernel against the plain replay: three small scenes
+    # through medium_with_params, packed and dense, k_walks 16 and 0.
+    dens, temp = fire_plume(height=40, radius=10.0)
+    temp_al = dense_grid_from_array(temp.data, temp.origin_ijk, temp.voxel_size, (0.0, 0.0, 0.0))
+    bb = torch.from_numpy(blackbody_xyz_table()).to(dev)
+    cases = [
+        ("fog_sphere", (fog_sphere(radius=12.0, falloff=3.0),), integ.IntegratorParams(**FOG_PARAMS), None,
+         (-14, 14), (-14, 14)),
+        ("fire_plume", (dens, temp), integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10)),
+        ("fire_plume_aligned", (dens, temp_al), integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10)),
+    ]
+    N = 2048
+    worst = 0.0
+    t_cases = time.perf_counter()
+    for name, grids, prm, bbt, yr, zr in cases:
+        rng = np.random.default_rng(0)
+        o = torch.tensor(np.stack([np.full(N, -40.0), rng.uniform(*yr, N), rng.uniform(*zr, N)], -1),
+                         dtype=torch.float32, device=dev)
+        d = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(N, 3).contiguous()
+        lp = torch.arange(N, dtype=torch.int32, device=dev)
+        s = vrng.mix_stream(3, 1)
+        g_full = torch.tensor(np.random.default_rng(1).uniform(0.2, 1.0, (N, 3)), dtype=torch.float32, device=dev)
+        base = Medium.from_grids(*grids, pack=False)
+        og = inv.OptimizableGrids(inv.param_from_density(base.density.data),
+                                  base.temperature.data if base.temperature is not None else None)
+        for pack in (True, False):
+            med = inv.medium_with_params(base, og, pack=pack)
+            ray_args = (med, prm, bbt, o, d, lp, s)
+            L_k, tf_k = mk.record_lanes(*ray_args, K)
+            L_p, tf_p = mk.record_lanes_plain(*ray_args, K)
+            agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
+            check(float(agree.float().mean()) > 0.95, f"{name}: record kernel and plain agree on {float(agree.float().mean())}")
+            g = g_full * agree[:, None]
+            for kw in (K, 0):
+                gk = mk.replay_lanes(*ray_args, L_k, g, tf=tf_k if kw else None)
+                gp = mk.replay_lanes_plain(*ray_args, L_p, g, tf=tf_p if kw else None)
+                errs = []
+                for what, a, b in (("density", gk[0], gp[0]), ("temperature", gk[1], gp[1])):
+                    if b is None:
+                        continue
+                    check(float(b.abs().max()) > 0, f"{name}: zero plain {what} gradient")
+                    errs.append((what, rel_l2(a, b)))
+                worst = max([worst] + [e for _, e in errs])
+                print(f"replay kernel, {name} ({'packed' if pack else 'dense'}, k_walks {kw}, {N} lanes, "
+                      f"{int(agree.sum())} with the cotangent): relative L2 against the plain replay "
+                      + ", ".join(f"{w} {e:.2e}" for w, e in errs))
+                for what, e in errs:
+                    check(e <= 1e-3, f"{name} ({'packed' if pack else 'dense'}, k_walks {kw}): {what} gradient "
+                                     f"relative L2 {e} > 1e-3")
+    print(f"replay kernel, twelve small cases: worst relative L2 {worst:.2e} (bound 1e-3: float atomics add in "
+          f"another order every run, FMA contraction); {time.perf_counter() - t_cases:.1f} s with the plain versions")
+
+    # (c) the full density step: bench.py's density cell, first step
+    coords = torch.from_numpy(pixel_coords(TRAIN_SIZE, TRAIN_SIZE)).to(dev)
+    tpids = torch.arange(TRAIN_SIZE * TRAIN_SIZE, dtype=torch.int32, device=dev)
+    wdas = integ.IntegratorParams(**dict(FOG_PARAMS, max_iters=TRAIN_ITERS))
+    fog_cam = Camera.from_parameters(
+        CameraParameters((110.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 35.0, 0.1),
+        (TRAIN_SIZE, TRAIN_SIZE), device=dev)
+    fog_base = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=False)
+    med = inv.medium_with_params(fog_base, inv.OptimizableGrids(inv.param_from_density(fog_base.density.data)),
+                                 pack=True)
+    o_w, d_w, pids_k, stream_k = inv.loss_rays(fog_cam, coords, tpids, (3, 1), TRAIN_K, True)
+    n = pids_k.shape[0]
+    ray_args = (med, wdas, None, o_w, d_w, pids_k, stream_k)
+    L_k, tf_k = mk.record_lanes(*ray_args, K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L_p, tf_p = mk.record_lanes_plain(*ray_args, K)
+    torch.cuda.synchronize()
+    record_plain_ms = (time.perf_counter() - t0) * 1e3
+    agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
+    close = float(agree.float().mean())
+    rel = ((L_k.mean(0) - L_p.mean(0)).abs() / (L_p.mean(0).abs() + 1e-9)).max()
+    record_max_abs = float((L_k - L_p).abs().max())
+    print(f"record kernel, density step ({n} lanes): lane-close {close:.4f} against the plain record, channel rel "
+          f"diff {float(rel):.2e}, max_abs_err {record_max_abs:.3e} (on lanes where rounding flips an event)")
+    check(close > 0.95 and float(rel) < 0.05, f"density step: record kernel lane-close {close}, channel diff {rel}")
+    g_full = torch.tensor(np.random.default_rng(2).uniform(0.2, 1.0, (n, 3)), dtype=torch.float32, device=dev)
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
+    tables = []
+    dk, _, acc, tot = mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k, with_check=True, lane_steps=steps,
+                                      row_tables=tables)
+    torch.cuda.synchronize()
+    bad = ~torch.isclose(acc, tot, rtol=1e-4, atol=1e-5)
+    n_bad = int(bad.sum())
+    worst_lanes = torch.nonzero(bad)[:8, 0].tolist()
+    print(f"accounting invariant, density step ({n} lanes, k_walks {K}): replayed <g, L> against <g, L_fwd> at rtol "
+          f"1e-4, atol 1e-5: {n - n_bad} lanes hold, {n_bad} miss"
+          + (f" (lanes {worst_lanes}: {acc[worst_lanes].tolist()} against {tot[worst_lanes].tolist()})" if n_bad else "")
+          + f"; max |acc - tot| {float((acc - tot).abs().max()):.3e}")
+    check(n_bad == 0, f"the accounting invariant fails on {n_bad} lanes of the density step, e.g. {worst_lanes}")
+    g = g_full * agree[:, None]
+    dk = mk.replay_lanes(*ray_args, L_k, g, tf=tf_k)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp = mk.replay_lanes_plain(*ray_args, L_p, g, tf=tf_p)[0]
+    torch.cuda.synchronize()
+    replay_plain_ms = (time.perf_counter() - t0) * 1e3
+    replay_err = rel_l2(dk, dp)
+    replay_max_abs = float((dk - dp).abs().max())
+    print(f"replay kernel, density step ({int(agree.sum())} of {n} lanes with the cotangent): relative L2 "
+          f"{replay_err:.2e}, max_abs_err {replay_max_abs:.3e} against the plain replay; plain versions: record "
+          f"{record_plain_ms:.1f} ms, replay {replay_plain_ms:.1f} ms")
+    check(replay_err <= 1e-3, f"density step: replay gradient relative L2 {replay_err} > 1e-3")
+    record_ms = kernel_device_ms(lambda: mk.record_lanes(*ray_args, K), 5, "trace_lanes_kernel")
+    replay_ms = kernel_device_ms(lambda: mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k), 5, "replay_lanes_kernel")
+    # Bounds, each byte once. The record reads what trace_lanes reads on the
+    # same batch (the same paths; one measuring launch marks it) and moves
+    # the state, pixel ids and streams, wc in and out and the residuals out.
+    # The replay walks the same paths (a PRE walk re-reads rows of its own
+    # ray), reads the initial state, ids, streams, g, L and the residuals,
+    # and writes the distinct corner rows it touched.
+    sf0, si0 = mk.pack_state(integ.init_state(med, o_w, d_w, wdas))
+    tap = mk.new_row_tap(med, wdas, None)
+    stat = mk.launch_stat(dev)
+    _, si_t = mk.trace_lanes(med, wdas, None, sf0, si0, pids_k, integ.lane_streams(stream_k, n, dev), TRAIN_ITERS,
+                             row_tap=tap, stat=stat)
+    torch.cuda.synchronize()
+    fwd_steps = int(si_t[2].to(torch.int64).sum())
+    row_bytes, read_words = tap_bytes(med, wdas, None, tap)
+    state_bytes = (len(mk.STATE_F32) + len(mk.STATE_I32)) * 4
+    rec_bytes = n * (2 * state_bytes + 8 + 8 + 4 * K) + row_bytes
+    rec_b_ms, rec_o_ms = rec_bytes / HBM_BYTES_PER_S * 1e3, fwd_steps * OPS_PER_LANE_STEP / FP32_OPS_PER_S * 1e3
+    rep_steps = int(steps.to(torch.int64).sum())
+    rows_written = int((tables[0] != 0).any(1).sum())
+    rep_bytes = n * (state_bytes + 8 + 24 + 4 * K) + row_bytes + rows_written * 32
+    rep_b_ms, rep_o_ms = rep_bytes / HBM_BYTES_PER_S * 1e3, rep_steps * OPS_PER_REPLAY_STEP / FP32_OPS_PER_S * 1e3
+    rec_bound, rep_bound = max(rec_b_ms, rec_o_ms), max(rep_b_ms, rep_o_ms)
+    rec_by = "bytes" if rec_b_ms >= rec_o_ms else "operations"
+    rep_by = "bytes" if rep_b_ms >= rep_o_ms else "operations"
+    print(f"record kernel, density step ({n} lanes): {record_ms:.4f} ms (device time, mean of 5); plain version "
+          f"{record_plain_ms:.1f} ms; lane-steps {fwd_steps}; read {read_words}; bound {rec_bound:.5f} ms ({rec_by}: "
+          f"{rec_bytes} B, {rec_b_ms:.5f} ms; {fwd_steps * OPS_PER_LANE_STEP} fp32 ops, {rec_o_ms:.5f} ms) = "
+          f"{rec_bound / record_ms:.4f} of the kernel's time on {card}")
+    print(f"replay kernel, density step ({n} lanes): {replay_ms:.4f} ms (device time, mean of 5); plain version "
+          f"{replay_plain_ms:.1f} ms; lane-steps {rep_steps} ({rep_steps / max(fwd_steps, 1):.3f} of the forward's); "
+          f"{rows_written} corner rows written; bound {rep_bound:.5f} ms ({rep_by}: {rep_bytes} B, {rep_b_ms:.5f} ms; "
+          f"{rep_steps * OPS_PER_REPLAY_STEP} fp32 ops, {rep_o_ms:.5f} ms) = {rep_bound / replay_ms:.4f} of the "
+          f"kernel's time on {card}")
+    del L_p, tf_p, dp, sf0, si0, tap, tables
+
+    # (d) bench.py's three train cells through make_train_step
+    fire_dens, fire_temp = fire_plume(height=96, radius=28.0)
+    joint_base = Medium.from_grids(fire_dens, fire_temp, pack=False)
+    fire_cam = Camera.from_parameters(
+        CameraParameters((170.0, 48.0, 0.0), (0.0, 48.0, 0.0), (0.0, 1.0, 0.0), 37.0, 0.1),
+        (TRAIN_SIZE, TRAIN_SIZE), device=dev)
+    joint_params = integ.IntegratorParams(**dict(FIRE_PARAMS, max_depth=10_000, max_iters=TRAIN_ITERS))
+    cells = [
+        ("density packed", fog_base, wdas, fog_cam, None, True, False, 3),
+        ("density unpacked", fog_base, wdas, fog_cam, None, False, False, 3),
+        ("joint density + temperature", joint_base, joint_params, fire_cam, bb, True, True, 5),
+    ]
+    target = torch.zeros((TRAIN_SIZE * TRAIN_SIZE, 3), dtype=torch.float32, device=dev)
+    launches = {"record": 0, "replay": 0}
+    train_rays = {}
+    for label, base, prm, cam, bbt, pack, dual, seed in cells:
+        grids = inv.OptimizableGrids(
+            inv.param_from_density(base.density.data).clone().requires_grad_(True),
+            base.temperature.data.clone().requires_grad_(True) if dual else None)
+        opt = inv.make_optimizer(grids)
+        step = inv.make_train_step(base, prm, cam, bbt, n_iters=TRAIN_ITERS, samples_per_step=TRAIN_K, pack=pack,
+                                   dual_buffer=dual)
+        batch = (coords, tpids, target)
+        grids, opt, loss = step(grids, opt, *batch, (seed, 1))  # warm-up: first-call allocations
+        float(loss)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts(mk)
+        chains, losses = [], []
+        for rep in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(TRAIN_CHAIN):
+                grids, opt, loss = step(grids, opt, *batch, (seed, 2 + rep * TRAIN_CHAIN + i))
+            losses.append(float(loss))  # the chain's one wait
+            chains.append(time.perf_counter() - t0)
+        counts = (mk.RECORD_LAUNCHES, mk.REPLAY_LAUNCHES, mk.PLAIN_RECORD_LAUNCHES, mk.PLAIN_REPLAY_LAUNCHES,
+                  mk.DENSE_RECORD_LAUNCHES, mk.DENSE_REPLAY_LAUNCHES, mk.LAUNCHES, mk.WAVE_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        n_steps = 3 * TRAIN_CHAIN
+        check(counts[0] == n_steps and counts[1] == n_steps,
+              f"{label}: {counts[0]} record and {counts[1]} replay launches in {n_steps} steps")
+        check(counts[2] == 0 and counts[3] == 0, f"{label}: the train step ran a plain version")
+        dense_want = 0 if pack else n_steps
+        check(counts[4] == dense_want and counts[5] == dense_want,
+              f"{label}: {counts[4]} / {counts[5]} dense launches, expected {dense_want}")
+        launches["record"] += counts[0]
+        launches["replay"] += counts[1]
+        finite = all(bool(torch.isfinite(x).all()) for x in inv.grid_leaves(grids))
+        grads_finite = all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in inv.grid_leaves(grids))
+        check(all(np.isfinite(losses)) and finite and grads_finite, f"{label}: loss, grids or gradients not finite")
+        best = min(chains)
+        rays_s = TRAIN_SIZE * TRAIN_SIZE * TRAIN_K * TRAIN_CHAIN / best
+        train_rays[label] = rays_s
+        # One step profiled: device time by kernel (CUPTI records only).
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            grids, opt, loss = step(grids, opt, *batch, (seed, 100))
+            float(loss)
+            wall = time.perf_counter() - t0
+        rec, rep, rest, busy, kern = device_split(prof, wall)
+        top = sorted((e for e in kern if "lanes_kernel" not in e.key), key=lambda e: -e.self_device_time_total)[:3]
+        host_top = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                          key=lambda e: -e.self_cpu_time_total)[:5]
+        step_s = best / TRAIN_CHAIN
+        # The host's share: the medium rebuilt (majorants, tables) and the
+        # kernels' constants made for the new medium, timed alone.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m2 = inv.medium_with_params(base, grids, pack=pack)
+        torch.cuda.synchronize()
+        rebuild_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        mk.kernel_constants(prb._detached_medium(m2), prm, bbt)
+        torch.cuda.synchronize()
+        consts_ms = (time.perf_counter() - t0) * 1e3
+        print(f"train {label} ({TRAIN_SIZE}x{TRAIN_SIZE} x {TRAIN_K} samples = {TRAIN_SIZE * TRAIN_SIZE * TRAIN_K} "
+              f"lanes a step, max_iters {TRAIN_ITERS}, {'packed' if pack else 'unpacked'}"
+              f"{', dual buffer' if dual else ''}): train rays/s {rays_s:.1f} (best of 3 chains of {TRAIN_CHAIN} "
+              f"steps, chain seconds {[round(c, 4) for c in chains]}); losses {[f'{x:.6g}' for x in losses]}; launches "
+              f"in {n_steps} steps: record {counts[0]}, replay {counts[1]}, plain 0, dense {counts[4]} / {counts[5]}; "
+              f"peak device memory {peak / 1e9:.3f} GB; one profiled step {wall * 1e3:.2f} ms: device "
+              f"{rec + rep + rest:.3f} ms = record kernel {rec:.3f} + replay kernel {rep:.3f} + the rest {rest:.3f} "
+              f"(most: " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}" for e in top)
+              + f"), device busy share {busy:.3f} of the profiled step and {(rec + rep + rest) / 1e3 / step_s:.3f} of "
+              f"the best chain's {step_s * 1e3:.3f} ms a step; host, most self time: "
+              + ", ".join(f"{e.key[:32]} {e.self_cpu_time_total / 1e3:.2f} ms ({e.count}x)" for e in host_top)
+              + f"; medium rebuild {rebuild_ms:.2f} ms, kernel constants {consts_ms:.2f} ms (host clock) on {card}")
+        del grids, opt, step, m2
+    print("train rays/s: " + json.dumps({k: round(v, 1) for k, v in train_rays.items()}) + f" on {card}")
+    source = "volume_path_tracer_tpu_torch/csrc/trace_lanes.cu"
+    return [
+        {"name": "record_lanes", "route": "cuda", "source": source,
+         "replaces": "volume_path_tracer_tpu/render/megakernel.py:617", "launches": launches["record"],
+         "max_abs_err": record_max_abs, "ms": record_ms, "plain_ms": record_plain_ms, "bound_ms": rec_bound,
+         "bound_by": rec_by, "library_ms": None},
+        {"name": "replay_lanes", "route": "cuda", "source": source,
+         "replaces": "volume_path_tracer_tpu/diff/prb.py:657", "launches": launches["replay"],
+         "max_abs_err": replay_max_abs, "ms": replay_ms, "plain_ms": replay_plain_ms, "bound_ms": rep_bound,
+         "bound_by": rep_by, "library_ms": None},
+    ]
 
 
 def main():
@@ -973,6 +1314,10 @@ def main():
           f"fire_16wide_rays_per_s {fire_rays_s[16]:.1f} big_cloud_512_rays_per_s {cloud_rays_s:.1f} "
           f"flagship_unpacked_rays_per_s {dflag_rays_s:.1f} fire_unpacked_rays_per_s "
           f"{fire_rays_s['unpacked']:.1f} big_cloud_512_unpacked_rays_per_s {dcloud_rays_s:.1f}")
+
+    # ------------------------------------------------------------------
+    phase("9 train")
+    train_kernels = train_phase(card, dev)
     print(card)
     source = "volume_path_tracer_tpu_torch/csrc/trace_lanes.cu"
     replaces = "volume_path_tracer_tpu/render/megakernel.py:617"
@@ -995,6 +1340,9 @@ def main():
          "launches": dense_trace_launches, "max_abs_err": dense_step_max_abs, "ms": dense_kernel_ms,
          "plain_ms": dense_plain_ms, "bound_ms": dense_bound_ms, "bound_by": dense_bound_by,
          "library_ms": None},
+        # The gradient path (phase 9): launches in bench.py's three train
+        # cells, times and bounds on the full density step.
+        *train_kernels,
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,7 @@
 // agree with the plain version to rounding, except where rounding flips a
 // knife-edge branch; draws and table reads agree exactly.
 //
-// One warp loop (warp_loop), two kernels around it:
+// One warp loop (warp_loop), three kernels around it:
 //
 //   render_wave_kernel  the renderer's wave. A lane is born from its pixel
 //                       id alone (jitter draw, camera ray, world -> index,
@@ -41,6 +41,26 @@
 //                       the film: no per-lane state crosses device memory.
 //   trace_lanes_kernel  state in, state out (SoA sf/si), for arbitrary ray
 //                       batches and for max_steps = 1, the one-step check.
+//                       Its kRecord instantiation is the forward of the
+//                       gradient path (diff/prb.py _trace_rays_record): the
+//                       same lane_step, and at each shadow walk's end the
+//                       walk's residual written into tf [n, K].
+//   replay_lanes_kernel the gradient path's backward, the counterpart of the
+//                       JAX package's XLA loop diff/prb.py replay_grads /
+//                       _make_replay_step (there is no Pallas kernel for it):
+//                       one thread replays one lane's path from its draw
+//                       counters and adds each event's derivative into
+//                       corner-row tables with two 16-byte float atomics.
+//
+// Path replay is right only if the replay takes the forward's branches on
+// the forward's draws, lane by lane. Both steps therefore call one inlined
+// traverse() (draws, free flight, the row read, the next segment) and the
+// same helpers for the event, the HG redirect and ratio tracking; the
+// record kernel runs lane_step itself, so its radiance is trace_lanes's bit
+// for bit. The replay is bound as the forward is (the chain's latency, the
+// longest lane), not by its atomics: a collision adds one 32-byte row, and
+// lanes of a warp hit scattered rows. Atomics add in another order on
+// every run, so its gradients equal the plain replay's to rounding only.
 //
 // What bounds it on this card, as measured (PERF.md, Findings): not bytes
 // and not the gather's bandwidth. A wave moves a few MB against 3.35 TB/s. A step is about 1,300 SASS instructions, most of them
@@ -86,6 +106,12 @@ namespace {
 constexpr int CAM = 0;
 constexpr int SHADOW = 1;
 constexpr int DONE = 2;
+// Replay modes (diff/prb.py): camera walk, shadow walk reproducing the
+// forward (PRE), shadow walk scattering gradients (GRAD), retired.
+constexpr int RCAM = 0;
+constexpr int RPRE = 1;
+constexpr int RGRAD = 2;
+constexpr int RDONE = 3;
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 4;  // __launch_bounds__: at most 128 registers a thread
 // Idle threads a warp waits for before it takes new lanes from the queue.
@@ -160,6 +186,20 @@ struct Args {
   // and last %globaltimer reading.
   unsigned char* tap;
   unsigned long long* stat;
+  // The record kernel: tf [n, k_walks] walk residuals and wc [n] walks
+  // started, both state in and out. The replay kernel: tf read, the
+  // cotangent g [n, 3] and the forward radiance Lf [n, 3], the corner-row
+  // gradient tables gd [(X+1)(Y+1)(Z+1), 8] and gt (temperature, or null),
+  // and, or null, gacc [n] (<g, L> replayed) and nsteps [n] (steps taken).
+  float* tf;
+  int* wc;
+  int k_walks, max_iters;
+  const float* g;
+  const float* Lf;
+  float* gd;
+  float* gt;
+  float* gacc;
+  int* nsteps;
   Params p;
 };
 
@@ -170,6 +210,13 @@ struct Lane {
   float pox, poy, poz, pdx, pdy, pdz, T_ray, phase_val;
   int depth, mode, ctr;
   uint32_t pid, strm;
+  // The record kernel: shadow walks started so far (the residual slot).
+  int wc;
+  // The replay kernel (which leaves Lx, Ly, Lz unused): <g, L accumulated>,
+  // <g, L_fwd>, the cotangent g, the walk's final transmittance, the shadow
+  // ray's first counter and clip, and the steps taken.
+  float gL_acc, gL_tot, gx, gy, gz, T_fin, sh_t0, sh_t1;
+  int sh_ctr0, nsteps;
 };
 
 __device__ __forceinline__ void pcg4d(uint32_t& v0, uint32_t& v1, uint32_t& v2, uint32_t& v3) {
@@ -301,11 +348,30 @@ __device__ __forceinline__ void set_direction(Lane& L, float dx, float dy, float
   L.ix = safe_inv(dx); L.iy = safe_inv(dy); L.iz = safe_inv(dz);
 }
 
-// One step of one lane that is not DONE (integrator.make_step). kTap: also
-// mark in a.tap what the lane reads (see Args), so a measurement can count
-// the distinct bytes a run needs. kDense: the medium has no fused table.
+// Corner-row index of base voxel (ix, iy, iz) in a table over [X, Y, Z]
+// (grids/grid.py corner_row_index, clamped; the caller masks with validity).
+__device__ __forceinline__ int corner_row(int ix, int iy, int iz, int X, int Y, int Z) {
+  return (clampi(ix + 1, 0, X) * (Y + 1) + clampi(iy + 1, 0, Y)) * (Z + 1) + clampi(iz + 1, 0, Z);
+}
+
+// What one tracking event gives a lane (integrator.make_traversal): the
+// draws, free flight in the carried segment, THE row read, the trilinear
+// sample and the next segment. lane_step and replay_step both call it, so a
+// replayed path takes the forward's branches on the forward's draws.
+struct Trav {
+  float u1, u2, u3;
+  float rsig, t_cand, t_next, pcx, pcy, pcz, rho, t_seg_f, sig_seg_f;
+  float w[8];
+  int ix, iy, iz;
+  bool collide, exited, fetch, valid, real_col, zero_col;
+  const float4* rp;  // the row read (packed media), for its temperature columns
+};
+
+// kTap: also mark in a.tap what the lane reads (see Args), so a measurement
+// can count the distinct bytes a run needs. kDense: the medium has no fused
+// table.
 template <bool kTap, bool kDense>
-__device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
+__device__ __forceinline__ void traverse(const Lane& L, const Args& a, Trav& tr) {
   const float* fp = a.p.f;
   const int* ip = a.p.i;
   const float voxel = fp[P_VOXEL];
@@ -313,20 +379,14 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   const float Ox = fp[P_ORIGIN], Oy = fp[P_ORIGIN + 1], Oz = fp[P_ORIGIN + 2];
   const int X = ip[I_X], Y = ip[I_Y], Z = ip[I_Z];
   const int BX = ip[I_BX], BY = ip[I_BY], BZ = ip[I_BZ];
-  const bool nee_on = ip[I_NEE] != 0;
-  const int emission = ip[I_EMISSION];
-  const float box_lo[3] = {Ox, Oy, Oz};
-  const float box_hi[3] = {Ox + (float)X, Oy + (float)Y, Oz + (float)Z};
-  const float wix = fp[P_WI], wiy = fp[P_WI + 1], wiz = fp[P_WI + 2];
-
-  const bool in_cam = L.mode == CAM;
-  const bool in_shw = L.mode == SHADOW;
 
   // ---- draws ----
   uint32_t r0 = L.pid, r1 = L.strm, r2 = (uint32_t)L.ctr, r3 = 0u;
   pcg4d(r0, r1, r2, r3);
-  const float u0 = u32_to_uniform(r0), u1 = u32_to_uniform(r1);
-  const float u2 = u32_to_uniform(r2), u3 = u32_to_uniform(r3);
+  const float u0 = u32_to_uniform(r0);
+  tr.u1 = u32_to_uniform(r1);
+  tr.u2 = u32_to_uniform(r2);
+  tr.u3 = u32_to_uniform(r3);
 
   // ---- free flight in the carried segment ----
   const bool has_seg = L.t_seg > L.t;
@@ -335,28 +395,34 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   // comes with the parameters: IEEE divisions are the longest links of the
   // chain (integrator.make_traversal and make_step compute the same way).
   const float rsig = __frcp_rn(sig);
+  tr.rsig = rsig;
   const float dt_w = -log1pf(-u0) * rsig;
   const float t_cand = L.t + dt_w * fp[P_INV_VOXEL];
   const bool collide = has_seg && (L.sig_seg > 0.f) && (t_cand < L.t_seg);
   const float t_next = has_seg ? L.t_seg : L.t;
   const bool exited = !collide && (t_next >= L.t_exit - 1e-6f);
   const bool fetch = !collide && !exited;
+  tr.t_cand = t_cand; tr.t_next = t_next;
+  tr.collide = collide; tr.exited = exited; tr.fetch = fetch;
 
   // ---- THE gather: corner row at a collision, majorant row otherwise ----
   // Row indices fit 32 bits (the wrapper refuses a larger table); the
   // address does not: the 16-wide 512^3 table passes 2^31 floats.
   const float t_gather = collide ? t_cand : t_next + 1e-3f;
   const float pcx = L.ox + L.dx * t_gather, pcy = L.oy + L.dy * t_gather, pcz = L.oz + L.dz * t_gather;
+  tr.pcx = pcx; tr.pcy = pcy; tr.pcz = pcz;
   const float lpx = pcx - Ox, lpy = pcy - Oy, lpz = pcz - Oz;
   const int bi = (int)floorf(lpx / 8.f), bj = (int)floorf(lpy / 8.f), bk = (int)floorf(lpz / 8.f);
   const bool b_valid = bi >= 0 && bi < BX && bj >= 0 && bj < BY && bk >= 0 && bk < BZ;
   const int b_flat = (clampi(bi, 0, BX - 1) * BY + clampi(bj, 0, BY - 1)) * BZ + clampi(bk, 0, BZ - 1);
   const int ix = (int)floorf(lpx), iy = (int)floorf(lpy), iz = (int)floorf(lpz);
+  tr.ix = ix; tr.iy = iy; tr.iz = iz;
   const float fx = lpx - (float)ix, fy = lpy - (float)iy, fz = lpz - (float)iz;
   const bool valid = ix >= -1 && ix <= X - 1 && iy >= -1 && iy <= Y - 1 && iz >= -1 && iz <= Z - 1;
-  float w[8];
+  tr.valid = valid;
+  float* w = tr.w;
   float rho, bmaj, smaj;
-  const float4* rp = nullptr;
+  tr.rp = nullptr;
   if constexpr (kDense) {
     // Per-corner validity here, per-row validity below: the same values,
     // since a packed row holds its corners zero-padded. A crossing lane
@@ -373,9 +439,10 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
     }
   } else {
     const int n_corner = (X + 1) * (Y + 1) * (Z + 1);
-    const int base = (clampi(ix + 1, 0, X) * (Y + 1) + clampi(iy + 1, 0, Y)) * (Z + 1) + clampi(iz + 1, 0, Z);
+    const int base = corner_row(ix, iy, iz, X, Y, Z);
     const int idx = clampi(collide ? base : n_corner + b_flat, 0, a.n_rows - 1);
-    rp = reinterpret_cast<const float4*>(a.rows + (size_t)idx * a.row_w);
+    const float4* rp = reinterpret_cast<const float4*>(a.rows + (size_t)idx * a.row_w);
+    tr.rp = rp;
     if (kTap) a.tap[idx] = 1;
     const float4 ra = __ldg(rp), rb = __ldg(rp + 1);
     tri_weights(fx, fy, fz, w);
@@ -383,6 +450,7 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
     bmaj = b_valid ? ra.x : 0.f;
     smaj = b_valid ? ra.y : 0.f;
   }
+  tr.rho = rho;
 
   // ---- next segment (crossing lanes): brick or superbrick ----
   const float extra = (smaj - bmaj) * sigma_t * 64.f * voxel;
@@ -396,10 +464,141 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   float t_cell = fmaxf((clx - L.ox) * L.ix, ((clx + cs) - L.ox) * L.ix);
   t_cell = fminf(t_cell, fmaxf((cly - L.oy) * L.iy, ((cly + cs) - L.oy) * L.iy));
   t_cell = fminf(t_cell, fmaxf((clz - L.oz) * L.iz, ((clz + cs) - L.oz) * L.iz));
-  const float t_seg_f = fmaxf(fminf(t_cell, L.t_exit), t_next + 2e-3f);
-  const float sig_seg_f = (use_super ? smaj : bmaj) * sigma_t;
-  const bool real_col = collide && (rho > 0.f);
-  const bool zero_col = collide && !(rho > 0.f);
+  tr.t_seg_f = fmaxf(fminf(t_cell, L.t_exit), t_next + 2e-3f);
+  tr.sig_seg_f = (use_super ? smaj : bmaj) * sigma_t;
+  tr.real_col = collide && (rho > 0.f);
+  tr.zero_col = collide && !(rho > 0.f);
+}
+
+// The adimensional temperature at a camera collision, by the medium's
+// emission arm (see I_EMISSION); (tlx, tly, tlz): the point in the
+// temperature grid's local coordinates, set by arms 2 and 3 only.
+template <bool kTap, bool kDense>
+__device__ __forceinline__ float sample_temperature(const Args& a, const Trav& tr,
+                                                    float& tlx, float& tly, float& tlz) {
+  const float* fp = a.p.f;
+  const int* ip = a.p.i;
+  float temp_adim;
+  if (!kDense && ip[I_EMISSION] == 1) {
+    const float4 ta = __ldg(tr.rp + 2), tb = __ldg(tr.rp + 3);
+    temp_adim = tr.valid ? dot8(ta, tb, tr.w) : 0.f;
+  } else {
+    temperature_local(fp, tr.pcx, tr.pcy, tr.pcz, tlx, tly, tlz);
+    const int TX = ip[I_TX], TY = ip[I_TY], TZ = ip[I_TZ];
+    const int jx = (int)floorf(tlx), jy = (int)floorf(tly), jz = (int)floorf(tlz);
+    float tw[8];
+    tri_weights(tlx - (float)jx, tly - (float)jy, tlz - (float)jz, tw);
+    if constexpr (kDense) {
+      temp_adim = dense_trilinear<kTap>(a.tdata, TX, TY, TZ, jx, jy, jz, tw,
+                                        kTap ? a.tap + sectors(a.n_dens) + a.n_maj : nullptr);
+    } else {
+      const bool tvalid = jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1;
+      const int tbase = clampi(corner_row(jx, jy, jz, TX, TY, TZ), 0, a.n_trows - 1);
+      const float4* tp = reinterpret_cast<const float4*>(a.trows + (size_t)tbase * 8);
+      if (kTap) a.tap[(size_t)a.n_rows + tbase] = 1;
+      temp_adim = tvalid ? dot8(__ldg(tp), __ldg(tp + 1), tw) : 0.f;
+    }
+  }
+  return temp_adim;
+}
+
+// The blackbody XYZ at temp_k from the pair LUT (utils/spectral.py
+// blackbody_radiation_xyz_from_pairs): lo + slope * frac, 0 for T <= 0.
+// slope_out, if given, gets the stored slopes (the derivative's numerators).
+__device__ __forceinline__ void blackbody(const Args& a, float temp_k, float* bb, float* slope_out) {
+  const float* fp = a.p.f;
+  const float tc = fminf(fmaxf(temp_k, 0.f), fp[P_TC_MAX]);
+  const float bb_res = fp[P_BB_RES];
+  const int ti = clampi((int)floorf(tc / bb_res) + 1, 0, a.p.i[I_NPAIRS] - 1);
+  const float frac = tc / bb_res - (float)(ti - 1);
+  const float* pr = a.bb_pairs + ti * 6;
+  const bool hot = !(temp_k <= 0.f);
+  bb[0] = hot ? __ldg(pr + 0) + __ldg(pr + 3) * frac : 0.f;
+  bb[1] = hot ? __ldg(pr + 1) + __ldg(pr + 4) * frac : 0.f;
+  bb[2] = hot ? __ldg(pr + 2) + __ldg(pr + 5) * frac : 0.f;
+  if (slope_out != nullptr) {
+    slope_out[0] = __ldg(pr + 3); slope_out[1] = __ldg(pr + 4); slope_out[2] = __ldg(pr + 5);
+  }
+}
+
+// The event of a camera collision (utils/rng.py sample_discrete3): 0 null,
+// 1 absorb, 2 scatter.
+__device__ __forceinline__ int pick_event(float p_n, float p_a, float p_s, float u1) {
+  const float total = p_n + p_a + p_s;
+  const float xv = u1 * total;
+  return xv <= p_n ? 0 : (xv <= p_n + p_a ? 1 : 2);
+}
+
+// A scatter at (pcx, pcy, pcz): the pending camera ray (HG redirect of d),
+// the phase toward the distant light, depth + 2.
+__device__ __forceinline__ void hg_scatter(Lane& L, const float* fp, float u2, float u3,
+                                           float pcx, float pcy, float pcz) {
+  // HG redirect around d (ops/phase.sample_henyey_greenstein)
+  const float dx = L.dx, dy = L.dy, dz = L.dz;
+  const float g = fp[P_G];
+  const float g2 = g * g;
+  const float denom = 1.f + g - 2.f * g * u2;
+  const float sqr = (1.f - g2) / (fabsf(denom) < 1e-12f ? 1e-12f : denom);
+  const float aniso = (1.f + g2 - sqr * sqr) / (2.f * (fabsf(g) < 1e-12f ? 1e-12f : g));
+  const float iso = 1.f - 2.f * u2;
+  const float cos_t = fabsf(g) < 1e-3f ? iso : aniso;
+  const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
+  const float phi = 6.28318548f * u3;
+  const float sin_c = fminf(fmaxf(sin_t, -1.f), 1.f);
+  float sin_p, cos_p;
+  sincosf(phi, &sin_p, &cos_p);
+  float lx = sin_c * cos_p, ly = sin_c * sin_p, lz = fminf(fmaxf(cos_t, -1.f), 1.f);
+  const float nrm = sqrtf(lx * lx + ly * ly + lz * lz);
+  lx = lx / nrm; ly = ly / nrm; lz = lz / nrm;
+  const float sgn = dz >= 0.f ? 1.f : -1.f;
+  const float aa = -1.f / (sgn + dz);
+  const float b = dx * dy * aa;
+  const float v2x = 1.f + sgn * aa * dx * dx, v2y = sgn * b, v2z = -sgn * dx;
+  const float v3x = b, v3y = sgn + aa * dy * dy, v3z = -dy;
+  L.pdx = lx * v2x + ly * v3x + lz * dx;
+  L.pdy = lx * v2y + ly * v3y + lz * dy;
+  L.pdz = lx * v2z + ly * v3z + lz * dz;
+  L.pox = pcx; L.poy = pcy; L.poz = pcz;
+  // HG phase toward the distant light (ops/phase.henyey_greenstein)
+  const float cw = dx * fp[P_WI] + dy * fp[P_WI + 1] + dz * fp[P_WI + 2];
+  const float den = fp[P_HG_DEN0] + fp[P_HG_C1] * cw;
+  L.phase_val = fp[P_HG_NUM] / (den * sqrtf(fmaxf(den, 1e-12f)));
+  L.depth = L.depth + 2;
+}
+
+// Ratio tracking at a shadow collision: T * sigma_n / sigma_maj with Russian
+// roulette below 0.05 (q = 0.75). Returns the new T (0: killed).
+__device__ __forceinline__ float ratio_track(float T_ray, float sigma_n, float rsig, float u1) {
+  float T_after = T_ray * (sigma_n * rsig);
+  const bool rr = T_after <= 0.05f;
+  const bool rr_kill = rr && (u1 < 0.75f);
+  T_after = rr_kill ? 0.f : (rr ? T_after / 0.25f : T_after);
+  return T_after;
+}
+
+// One step of one lane that is not DONE (integrator.make_step).
+template <bool kTap, bool kDense>
+__device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
+  const float* fp = a.p.f;
+  const int* ip = a.p.i;
+  const float sigma_t = fp[P_SIGMA_T];
+  const float Ox = fp[P_ORIGIN], Oy = fp[P_ORIGIN + 1], Oz = fp[P_ORIGIN + 2];
+  const int X = ip[I_X], Y = ip[I_Y], Z = ip[I_Z];
+  const bool nee_on = ip[I_NEE] != 0;
+  const int emission = ip[I_EMISSION];
+  const float box_lo[3] = {Ox, Oy, Oz};
+  const float box_hi[3] = {Ox + (float)X, Oy + (float)Y, Oz + (float)Z};
+  const float wix = fp[P_WI], wiy = fp[P_WI + 1], wiz = fp[P_WI + 2];
+
+  const bool in_cam = L.mode == CAM;
+  const bool in_shw = L.mode == SHADOW;
+
+  Trav tr;
+  traverse<kTap, kDense>(L, a, tr);
+  const bool exited = tr.exited, fetch = tr.fetch;
+  const float rho = tr.rho, rsig = tr.rsig;
+  const float pcx = tr.pcx, pcy = tr.pcy, pcz = tr.pcz;
+  const bool real_col = tr.real_col, zero_col = tr.zero_col;
 
   // ---- camera-mode collision: emission, then the event ----
   const bool cam_col = in_cam && real_col;
@@ -407,94 +606,28 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   const float p_s = fp[P_SIGMA_S] * rho * rsig;
   const float p_n = fmaxf(1.f - p_a - p_s, 0.f);
   if (emission != 0 && cam_col) {
-    float temp_adim;
-    if (!kDense && emission == 1) {
-      const float4 ta = __ldg(rp + 2), tb = __ldg(rp + 3);
-      temp_adim = valid ? dot8(ta, tb, w) : 0.f;
-    } else {
-      float tlx, tly, tlz;
-      temperature_local(fp, pcx, pcy, pcz, tlx, tly, tlz);
-      const int TX = ip[I_TX], TY = ip[I_TY], TZ = ip[I_TZ];
-      const int jx = (int)floorf(tlx), jy = (int)floorf(tly), jz = (int)floorf(tlz);
-      float tw[8];
-      tri_weights(tlx - (float)jx, tly - (float)jy, tlz - (float)jz, tw);
-      if constexpr (kDense) {
-        temp_adim = dense_trilinear<kTap>(a.tdata, TX, TY, TZ, jx, jy, jz, tw,
-                                          kTap ? a.tap + sectors(a.n_dens) + a.n_maj : nullptr);
-      } else {
-        const bool tvalid = jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1;
-        const int tbase = clampi(
-            (clampi(jx + 1, 0, TX) * (TY + 1) + clampi(jy + 1, 0, TY)) * (TZ + 1) + clampi(jz + 1, 0, TZ),
-            0, a.n_trows - 1);
-        const float4* tp = reinterpret_cast<const float4*>(a.trows + (size_t)tbase * 8);
-        if (kTap) a.tap[(size_t)a.n_rows + tbase] = 1;
-        temp_adim = tvalid ? dot8(__ldg(tp), __ldg(tp + 1), tw) : 0.f;
-      }
-    }
+    float tlx, tly, tlz;
+    const float temp_adim = sample_temperature<kTap, kDense>(a, tr, tlx, tly, tlz);
     const float temp_k = temp_adim * fp[P_T_SCALE] + fp[P_T_OFFSET];
-    const float tc = fminf(fmaxf(temp_k, 0.f), fp[P_TC_MAX]);
-    const float bb_res = fp[P_BB_RES];
-    const int ti = clampi((int)floorf(tc / bb_res) + 1, 0, ip[I_NPAIRS] - 1);
-    const float frac = tc / bb_res - (float)(ti - 1);
-    const float* pr = a.bb_pairs + ti * 6;
-    const bool hot = !(temp_k <= 0.f);
-    const float bx = hot ? __ldg(pr + 0) + __ldg(pr + 3) * frac : 0.f;
-    const float by = hot ? __ldg(pr + 1) + __ldg(pr + 4) * frac : 0.f;
-    const float bz = hot ? __ldg(pr + 2) + __ldg(pr + 5) * frac : 0.f;
+    float bb[3];
+    blackbody(a, temp_k, bb, nullptr);
     const float pal = p_a * fp[P_LE_SCALE];
-    L.Lx = L.Lx + pal * bx;
-    L.Ly = L.Ly + pal * by;
-    L.Lz = L.Lz + pal * bz;
+    L.Lx = L.Lx + pal * bb[0];
+    L.Ly = L.Ly + pal * bb[1];
+    L.Lz = L.Lz + pal * bb[2];
   }
-  const float total = p_n + p_a + p_s;
-  const float xv = u1 * total;
-  const int event = xv <= p_n ? 0 : (xv <= p_n + p_a ? 1 : 2);
+  const int event = pick_event(p_n, p_a, p_s, tr.u1);
   const bool cam_null = cam_col && event == 0;
   const bool cam_abs = cam_col && event == 1;
   const bool cam_scat = cam_col && event == 2;
 
   const float phase_old = L.phase_val;
-  if (cam_scat) {
-    // HG redirect around d (ops/phase.sample_henyey_greenstein)
-    const float dx = L.dx, dy = L.dy, dz = L.dz;
-    const float g = fp[P_G];
-    const float g2 = g * g;
-    const float denom = 1.f + g - 2.f * g * u2;
-    const float sqr = (1.f - g2) / (fabsf(denom) < 1e-12f ? 1e-12f : denom);
-    const float aniso = (1.f + g2 - sqr * sqr) / (2.f * (fabsf(g) < 1e-12f ? 1e-12f : g));
-    const float iso = 1.f - 2.f * u2;
-    const float cos_t = fabsf(g) < 1e-3f ? iso : aniso;
-    const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
-    const float phi = 6.28318548f * u3;
-    const float sin_c = fminf(fmaxf(sin_t, -1.f), 1.f);
-    float sin_p, cos_p;
-    sincosf(phi, &sin_p, &cos_p);
-    float lx = sin_c * cos_p, ly = sin_c * sin_p, lz = fminf(fmaxf(cos_t, -1.f), 1.f);
-    const float nrm = sqrtf(lx * lx + ly * ly + lz * lz);
-    lx = lx / nrm; ly = ly / nrm; lz = lz / nrm;
-    const float sgn = dz >= 0.f ? 1.f : -1.f;
-    const float aa = -1.f / (sgn + dz);
-    const float b = dx * dy * aa;
-    const float v2x = 1.f + sgn * aa * dx * dx, v2y = sgn * b, v2z = -sgn * dx;
-    const float v3x = b, v3y = sgn + aa * dy * dy, v3z = -dy;
-    L.pdx = lx * v2x + ly * v3x + lz * dx;
-    L.pdy = lx * v2y + ly * v3y + lz * dy;
-    L.pdz = lx * v2z + ly * v3z + lz * dz;
-    L.pox = pcx; L.poy = pcy; L.poz = pcz;
-    // HG phase toward the distant light (ops/phase.henyey_greenstein)
-    const float cw = dx * wix + dy * wiy + dz * wiz;
-    const float den = fp[P_HG_DEN0] + fp[P_HG_C1] * cw;
-    L.phase_val = fp[P_HG_NUM] / (den * sqrtf(fmaxf(den, 1e-12f)));
-    L.depth = L.depth + 2;
-  }
+  if (cam_scat) hg_scatter(L, fp, tr.u2, tr.u3, pcx, pcy, pcz);
 
   // ---- shadow-mode collision: ratio tracking + Russian roulette ----
   const bool shw_col = in_shw && real_col;
   const float sigma_n = fmaxf(L.sig_seg - sigma_t * rho, 0.f);
-  float T_after = L.T_ray * (sigma_n * rsig);
-  const bool rr = T_after <= 0.05f;
-  const bool rr_kill = rr && (u1 < 0.75f);
-  T_after = rr_kill ? 0.f : (rr ? T_after / 0.25f : T_after);
+  const float T_after = ratio_track(L.T_ray, sigma_n, rsig, tr.u1);
   const float T_new = shw_col ? T_after : L.T_ray;
   const bool shw_dead = shw_col && (T_new <= 0.f);
   const bool shadow_finish = (in_shw && exited) || shw_dead;
@@ -561,15 +694,227 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
     L.t_exit = resume_ok ? t1n : t1p;
   }
   const bool plain_adv = cam_null || zero_col || (in_shw && real_col && !shadow_finish);
-  if (plain_adv) t_new = t_cand;
-  if (fetch) t_new = t_next;
+  if (plain_adv) t_new = tr.t_cand;
+  if (fetch) t_new = tr.t_next;
 
   const bool new_ray = start_shadow_ok || resume_ok || miss_resume_ok;
-  if (fetch) { L.sig_seg = sig_seg_f; L.t_seg = t_seg_f; }
+  if (fetch) { L.sig_seg = tr.sig_seg_f; L.t_seg = tr.t_seg_f; }
   if (new_ray) { L.sig_seg = 0.f; L.t_seg = t_new; }
   L.t = t_new;
   L.T_ray = start_shadow_ok ? 1.f : T_new;
   L.ctr = L.ctr + 1;
+}
+
+// The record kernel's look at one step from outside (diff/prb.py
+// _trace_rays_record): a shadow walk that ended writes its residual into
+// slot wc - 1 of the lane's row of tf (T_final > 0, or -(the counter after
+// it) for a walk that died), and a walk that started takes the next slot.
+__device__ __forceinline__ void record_walks(Lane& L, int mode0, int q, const Args& a) {
+  if (mode0 == SHADOW && L.mode != SHADOW) {
+    const int slot = L.wc - 1;
+    if (slot < a.k_walks) a.tf[(size_t)q * a.k_walks + slot] = L.T_ray > 0.f ? L.T_ray : -(float)L.ctr;
+  }
+  if (mode0 == CAM && L.mode == SHADOW) L.wc = L.wc + 1;
+}
+
+// Add w[c] * wgt to the 8 corner columns of `row` of a corner-row table:
+// two 16-byte float atomics (sm_90).
+__device__ __forceinline__ void scatter_row(float* table, int row, const float* w, float wgt) {
+  float4* p = reinterpret_cast<float4*>(table + (size_t)row * 8);
+  atomicAdd(p, make_float4(w[0] * wgt, w[1] * wgt, w[2] * wgt, w[3] * wgt));
+  atomicAdd(p + 1, make_float4(w[4] * wgt, w[5] * wgt, w[6] * wgt, w[7] * wgt));
+}
+
+// One replay step of one lane that is not RDONE (diff/prb.py
+// _make_replay_step): the forward's tracking event by traverse(), then the
+// camera collision's emission and score-function weights, the PRE / GRAD
+// shadow walks, the recorded residual at a shadow start, resume / retire,
+// and the gradient scatter into the corner-row tables a.gd and a.gt.
+template <bool kDense>
+__device__ __forceinline__ void replay_step(Lane& L, int q, const Args& a) {
+  const float* fp = a.p.f;
+  const int* ip = a.p.i;
+  // Truncation parity: a forward lane stops drawing at max_iters.
+  if (L.ctr >= a.max_iters) { L.mode = RDONE; return; }
+  const float sigma_a = fp[P_SIGMA_A], sigma_s = fp[P_SIGMA_S], sigma_t = fp[P_SIGMA_T];
+  const float Ox = fp[P_ORIGIN], Oy = fp[P_ORIGIN + 1], Oz = fp[P_ORIGIN + 2];
+  const int X = ip[I_X], Y = ip[I_Y], Z = ip[I_Z];
+  const bool nee_on = ip[I_NEE] != 0;
+  const int emission = ip[I_EMISSION];
+  const float box_lo[3] = {Ox, Oy, Oz};
+  const float box_hi[3] = {Ox + (float)X, Oy + (float)Y, Oz + (float)Z};
+  const float wix = fp[P_WI], wiy = fp[P_WI + 1], wiz = fp[P_WI + 2];
+  const bool in_cam = L.mode == RCAM;
+  const bool in_pre = L.mode == RPRE;
+  const bool in_grad = L.mode == RGRAD;
+  const float gLi = L.gx * fp[P_LI] + L.gy * fp[P_LI + 1] + L.gz * fp[P_LI + 2];
+  const float gLinf = L.gx * fp[P_LINF] + L.gy * fp[P_LINF + 1] + L.gz * fp[P_LINF + 2];
+
+  Trav tr;
+  traverse<false, kDense>(L, a, tr);
+  const float rho = tr.rho, rsig = tr.rsig;
+  const float pcx = tr.pcx, pcy = tr.pcy, pcz = tr.pcz;
+
+  // ---- camera collision: emission, then the event's score factor ----
+  const bool cam_col = in_cam && tr.real_col;
+  const float p_a = sigma_a * rho * rsig;
+  const float p_s = sigma_s * rho * rsig;
+  const float p_n = fmaxf(1.f - p_a - p_s, 0.f);
+  float demis = 0.f, tw = 0.f;
+  float tlx = 0.f, tly = 0.f, tlz = 0.f;
+  if (emission != 0 && cam_col) {
+    const float temp_adim = sample_temperature<false, kDense>(a, tr, tlx, tly, tlz);
+    if (!kDense && emission == 1) temperature_local(fp, pcx, pcy, pcz, tlx, tly, tlz);
+    const float temp_k = temp_adim * fp[P_T_SCALE] + fp[P_T_OFFSET];
+    float bb[3], slope[3];
+    blackbody(a, temp_k, bb, slope);
+    // d bb / dT: the slope over the LUT's resolution inside the lerp's range.
+    const bool in_range = temp_k > 0.f && temp_k < fp[P_TC_MAX];
+    const float bb_res = fp[P_BB_RES];
+    const float gbb = L.gx * bb[0] + L.gy * bb[1] + L.gz * bb[2];
+    const float gbbg = in_range ? L.gx * (slope[0] / bb_res) + L.gy * (slope[1] / bb_res) + L.gz * (slope[2] / bb_res)
+                                : 0.f;
+    const float le = fp[P_LE_SCALE];
+    L.gL_acc = L.gL_acc + p_a * le * gbb;
+    demis = (sigma_a * rsig) * le * gbb;
+    tw = p_a * le * gbbg * fp[P_T_SCALE];
+  }
+  const int event = pick_event(p_n, p_a, p_s, tr.u1);
+  const bool cam_null = cam_col && event == 0;
+  const bool cam_abs = cam_col && event == 1;
+  const bool cam_scat = cam_col && event == 2;
+  float score_w = 0.f;
+  if (cam_col) {
+    // autograd of p_e / detach(p_e): (d p_e / p_e) * the suffix from here on.
+    const float dpn = (1.f - p_a - p_s > 0.f) ? -sigma_t : 0.f;
+    const float coef = event == 0 ? dpn : (event == 1 ? sigma_a : sigma_s);
+    const float p_e = event == 0 ? p_n : (event == 1 ? p_a : p_s);
+    const float gsuffix = L.gL_tot - L.gL_acc;
+    if (p_e > 1e-20f) score_w = (coef * rsig) / fmaxf(p_e, 1e-20f) * gsuffix;
+  }
+  if (cam_scat) hg_scatter(L, fp, tr.u2, tr.u3, pcx, pcy, pcz);
+
+  // ---- shadow walks: PRE reproduces the forward, GRAD scatters ----
+  const bool shw_col = (in_pre || in_grad) && tr.real_col;
+  const float sigma_n = fmaxf(L.sig_seg - sigma_t * rho, 0.f);
+  const float T_after = ratio_track(L.T_ray, sigma_n, rsig, tr.u1);
+  const float T_new = shw_col ? T_after : L.T_ray;
+  const bool shw_dead = shw_col && (T_new <= 0.f);
+  const bool pre_finish = in_pre && (tr.exited || shw_dead);
+  const bool grad_finish = in_grad && (tr.exited || shw_dead);
+  float shadow_w = 0.f;
+  if (in_grad && shw_col && sigma_n > 0.f)
+    shadow_w = -L.phase_val * gLi * sigma_t * L.T_fin / fmaxf(sigma_n, 1e-20f);
+  if (pre_finish) {
+    L.gL_acc = L.gL_acc + L.phase_val * T_new * gLi;
+    L.T_fin = T_new;
+  }
+  const bool go_grad = pre_finish && (L.T_fin > 0.f);
+  const bool pre_resume = pre_finish && !go_grad;
+
+  // ---- resume / retire ----
+  const bool shadow_done = grad_finish || pre_resume;
+  const bool start_shadow = nee_on && cam_scat;
+  const bool resume = nee_on ? shadow_done : (shadow_done || cam_scat);
+  float pix = 0.f, piy = 0.f, piz = 0.f;
+  float t0n = 0.f, t1n = 0.f;
+  bool hitn = false;
+  if (start_shadow) {
+    clip_box(pcx, pcy, pcz, fp[P_WI_INV], fp[P_WI_INV + 1], fp[P_WI_INV + 2], box_lo, box_hi, t0n, t1n, hitn);
+  } else if (resume) {
+    pix = safe_inv(L.pdx); piy = safe_inv(L.pdy); piz = safe_inv(L.pdz);
+    clip_box(L.pox, L.poy, L.poz, pix, piy, piz, box_lo, box_hi, t0n, t1n, hitn);
+  }
+  const bool depth_ok = L.depth < ip[I_MAX_DEPTH];
+  const bool resume_ok = resume && hitn && depth_ok;
+  const bool resume_escape = resume && (!hitn || !depth_ok);
+  const bool start_shadow_ok = start_shadow && hitn;
+  const bool shadow_miss = start_shadow && !hitn;
+  if (shadow_miss) L.gL_acc = L.gL_acc + L.phase_val * gLi;
+
+  // A recorded walk: its residual instead of a PRE walk.
+  bool slot_ok = false, sv_unfinished = false, sv_live = false, sv_killed = false;
+  float tf_val = 0.f;
+  if (start_shadow_ok && a.k_walks > 0) {
+    slot_ok = L.wc < a.k_walks;
+    if (slot_ok) tf_val = a.tf[(size_t)q * a.k_walks + L.wc];
+    sv_unfinished = slot_ok && tf_val == 0.f;
+    sv_live = slot_ok && tf_val > 0.f;
+    sv_killed = slot_ok && tf_val < 0.f;
+  }
+  // The forward added the walk's contribution at its end; no camera event
+  // comes before the GRAD walk ends.
+  if (sv_live) L.gL_acc = L.gL_acc + L.phase_val * tf_val * gLi;
+  const bool start_pre_ok = start_shadow_ok && !slot_ok;
+  float t0p = 0.f, t1p = 0.f;
+  bool hitp = false;
+  if (shadow_miss || sv_killed) {
+    pix = safe_inv(L.pdx); piy = safe_inv(L.pdy); piz = safe_inv(L.pdz);
+    clip_box(L.pox, L.poy, L.poz, pix, piy, piz, box_lo, box_hi, t0p, t1p, hitp);
+  }
+  const bool miss_resume_ok = shadow_miss && hitp && depth_ok;
+  const bool miss_resume_escape = shadow_miss && (!hitp || !depth_ok);
+  const bool sv_skip_ok = sv_killed && hitp && depth_ok;
+  const bool sv_skip_escape = sv_killed && (!hitp || !depth_ok);
+  if (start_shadow_ok) L.wc = L.wc + 1;
+
+  const bool done_inf = (in_cam && tr.exited) || resume_escape || miss_resume_escape || sv_skip_escape;
+  if (done_inf) L.gL_acc = L.gL_acc + gLinf;
+  if (done_inf || cam_abs || sv_unfinished) L.mode = RDONE;
+  if (start_pre_ok) L.mode = RPRE;
+  if (resume_ok || miss_resume_ok || sv_skip_ok) L.mode = RCAM;
+  if (go_grad || sv_live) L.mode = RGRAD;
+
+  // ---- the next walk's ray ----
+  float t_new = L.t;
+  if (start_shadow_ok) {
+    L.ox = pcx; L.oy = pcy; L.oz = pcz;
+    L.dx = wix; L.dy = wiy; L.dz = wiz;
+    L.ix = fp[P_WI_INV]; L.iy = fp[P_WI_INV + 1]; L.iz = fp[P_WI_INV + 2];
+    t_new = t0n; L.t_exit = t1n;
+  }
+  if (resume_ok || miss_resume_ok || sv_skip_ok) {
+    L.ox = L.pox; L.oy = L.poy; L.oz = L.poz;
+    L.dx = L.pdx; L.dy = L.pdy; L.dz = L.pdz;
+    L.ix = pix; L.iy = piy; L.iz = piz;
+    t_new = resume_ok ? t0n : t0p;
+    L.t_exit = resume_ok ? t1n : t1p;
+  }
+  if (go_grad) {
+    // PRE -> GRAD: the saved shadow ray again, from its first counter.
+    L.ox = L.pox; L.oy = L.poy; L.oz = L.poz;
+    L.dx = wix; L.dy = wiy; L.dz = wiz;
+    L.ix = fp[P_WI_INV]; L.iy = fp[P_WI_INV + 1]; L.iz = fp[P_WI_INV + 2];
+    t_new = L.sh_t0; L.t_exit = L.sh_t1;
+  }
+  const bool plain_adv = cam_null || tr.zero_col || (shw_col && !(pre_finish || grad_finish));
+  if (plain_adv) t_new = tr.t_cand;
+  if (tr.fetch) t_new = tr.t_next;
+  const bool new_ray = start_shadow_ok || resume_ok || miss_resume_ok || go_grad || sv_skip_ok;
+  if (tr.fetch) { L.sig_seg = tr.sig_seg_f; L.t_seg = tr.t_seg_f; }
+  if (new_ray) { L.sig_seg = 0.f; L.t_seg = t_new; }
+  L.t = t_new;
+  L.T_ray = (start_shadow_ok || go_grad) ? 1.f : T_new;
+  if (sv_live) L.T_fin = tf_val;
+  const int ctr_next = (go_grad ? L.sh_ctr0 : L.ctr) + 1;
+  if (start_shadow_ok) { L.sh_ctr0 = L.ctr; L.sh_t0 = t0n; L.sh_t1 = t1n; }
+  L.ctr = sv_killed ? (int)(-tf_val) : ctr_next;  // a killed walk: past its draws
+  L.nsteps = L.nsteps + 1;
+
+  // ---- the gradient scatter ----
+  // Emission + score weights on camera collisions, shadow_w on GRAD
+  // collisions: disjoint lanes, added in the plain version's order.
+  const float dweight = (demis + score_w) + shadow_w;
+  if (dweight != 0.f && tr.valid) scatter_row(a.gd, corner_row(tr.ix, tr.iy, tr.iz, X, Y, Z), tr.w, dweight);
+  if (tw != 0.f) {
+    const int TX = ip[I_TX], TY = ip[I_TY], TZ = ip[I_TZ];
+    const int jx = (int)floorf(tlx), jy = (int)floorf(tly), jz = (int)floorf(tlz);
+    if (jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1) {
+      float w8t[8];
+      tri_weights(tlx - (float)jx, tly - (float)jy, tlz - (float)jz, w8t);
+      scatter_row(a.gt, corner_row(jx, jy, jz, TX, TY, TZ), w8t, tw);
+    }
+  }
 }
 
 // A new lane from its pixel id alone: the jitter draw (renderer.py
@@ -663,22 +1008,52 @@ __device__ __forceinline__ void store_lane(const Lane& L, int q, const Args& a) 
   si[0 * n + q] = L.depth; si[1 * n + q] = L.mode; si[2 * n + q] = L.ctr;
 }
 
+// A replay lane from the forward's initial state (sf, si: init_state, read
+// only) and its cotangent (diff/prb.py _replay_init): a lane whose ray
+// misses the box is RDONE with <g, L_inf> accumulated.
+__device__ __forceinline__ void replay_lane(Lane& L, int q, const Args& a) {
+  const float* fp = a.p.f;
+  load_lane(L, q, a);
+  L.gx = a.g[3 * (size_t)q]; L.gy = a.g[3 * (size_t)q + 1]; L.gz = a.g[3 * (size_t)q + 2];
+  L.gL_tot = L.gx * a.Lf[3 * (size_t)q] + L.gy * a.Lf[3 * (size_t)q + 1] + L.gz * a.Lf[3 * (size_t)q + 2];
+  const bool hit = L.mode == CAM;
+  L.mode = hit ? RCAM : RDONE;
+  L.gL_acc = hit ? 0.f : L.gx * fp[P_LINF] + L.gy * fp[P_LINF + 1] + L.gz * fp[P_LINF + 2];
+  L.T_fin = 0.f; L.sh_t0 = 0.f; L.sh_t1 = 0.f;
+  L.sh_ctr0 = 0; L.wc = 0; L.nsteps = 0;
+}
+
+__device__ __forceinline__ void finish_replay(const Lane& L, int q, const Args& a) {
+  if (a.gacc != nullptr) {
+    a.gacc[q] = L.gL_acc;
+    a.nsteps[q] = L.nsteps;
+  }
+}
+
 __device__ __forceinline__ unsigned long long global_timer() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
 
-// The warp loop of both kernels. kWave: lanes are born from pixel ids and
-// end in the film (render_wave_kernel); otherwise they are loaded from and
-// stored to the SoA state at their queue index (trace_lanes_kernel). A lane
-// runs until it is DONE or has taken a.max_steps steps in this launch.
-template <bool kWave, bool kTap, bool kDense>
+// What a warp loop carries its lanes through.
+enum Kind {
+  kWaveKind,    // render_wave_kernel: born from pixel ids, ends in the film
+  kTraceKind,   // trace_lanes_kernel: SoA state in, state out
+  kRecordKind,  // trace_lanes_kernel<., ., true>: the same, recording NEE walks
+  kReplayKind,  // replay_lanes_kernel: the backward replay
+};
+
+// The warp loop of every kernel. A lane runs until it is done or has taken
+// a.max_steps steps in this launch.
+template <int kKind, bool kTap, bool kDense>
 __device__ __forceinline__ void warp_loop(const Args& a) {
+  constexpr bool kWave = kKind == kWaveKind;
+  constexpr int kDoneMode = kKind == kReplayKind ? RDONE : DONE;
   const unsigned lane_id = threadIdx.x & 31u;
   const unsigned below = (1u << lane_id) - 1u;
   Lane L;
-  L.mode = DONE;
+  L.mode = kDoneMode;
   int q = 0, steps_left = 0;
   bool idle = true, drained = false;
   int capped = 0, max_ctr = 0;
@@ -699,12 +1074,15 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
       if (idle && mine < a.n) {
         q = mine;
         steps_left = a.max_steps;
-        if (kWave) {
+        if constexpr (kWave) {
           camera_lane(L, (uint32_t)(a.pids != nullptr ? a.pids[q] : a.start + q), a);
+        } else if constexpr (kKind == kReplayKind) {
+          replay_lane(L, q, a);
         } else {
           load_lane(L, q, a);
+          if constexpr (kKind == kRecordKind) L.wc = a.wc[q];
         }
-        idle = L.mode == DONE || steps_left <= 0;
+        idle = L.mode == kDoneMode || steps_left <= 0;
         // A lane that is DONE at birth (its ray misses the box) still owes
         // the film its sample; a loaded state that takes no step is left
         // as it is.
@@ -712,6 +1090,7 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
           add_to_film(L, a);
           capped += L.mode != DONE;
         }
+        if (kKind == kReplayKind && idle) finish_replay(L, q, a);
       }
     }
     if (__all_sync(FULL, idle)) {
@@ -721,17 +1100,28 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
 
     // ---- one step of every lane the warp carries ----
     if (!idle) {
-      lane_step<kTap, kDense>(L, a);
+      if constexpr (kKind == kReplayKind) {
+        replay_step<kDense>(L, q, a);
+      } else if constexpr (kKind == kRecordKind) {
+        const int mode0 = L.mode;
+        lane_step<kTap, kDense>(L, a);
+        record_walks(L, mode0, q, a);
+      } else {
+        lane_step<kTap, kDense>(L, a);
+      }
       --steps_left;
-      if (L.mode == DONE || steps_left == 0) {
-        if (kWave) {
+      if (L.mode == kDoneMode || steps_left == 0) {
+        if constexpr (kWave) {
           // A lane stopped by the cap adds what it gathered and no infinite
           // light (integrator.finalize_radiance).
           add_to_film(L, a);
           capped += L.mode != DONE;
           max_ctr = max(max_ctr, L.ctr);
+        } else if constexpr (kKind == kReplayKind) {
+          finish_replay(L, q, a);
         } else {
           store_lane(L, q, a);
+          if constexpr (kKind == kRecordKind) a.wc[q] = L.wc;
         }
         idle = true;
       }
@@ -762,35 +1152,45 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
 
 template <bool kTap, bool kDense>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) render_wave_kernel(const Args a) {
-  warp_loop<true, kTap, kDense>(a);
+  warp_loop<kWaveKind, kTap, kDense>(a);
 }
 
-template <bool kTap, bool kDense>
+// kRecord: the record instantiation, the forward of the gradient path.
+template <bool kTap, bool kDense, bool kRecord>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) trace_lanes_kernel(const Args a) {
-  warp_loop<false, kTap, kDense>(a);
+  warp_loop<kRecord ? kRecordKind : kTraceKind, kTap, kDense>(a);
+}
+
+template <bool kDense>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) replay_lanes_kernel(const Args a) {
+  warp_loop<kReplayKind, false, kDense>(a);
 }
 
 using Kernel = void (*)(const Args);
 
 template <bool kDense>
-Kernel pick_kernel(bool wave, bool tap) {
-  if (wave) return tap ? render_wave_kernel<true, kDense> : render_wave_kernel<false, kDense>;
-  return tap ? trace_lanes_kernel<true, kDense> : trace_lanes_kernel<false, kDense>;
+Kernel pick_kernel(int kind, bool tap) {
+  switch (kind) {
+    case kWaveKind: return tap ? render_wave_kernel<true, kDense> : render_wave_kernel<false, kDense>;
+    case kTraceKind: return tap ? trace_lanes_kernel<true, kDense, false> : trace_lanes_kernel<false, kDense, false>;
+    case kRecordKind: return trace_lanes_kernel<false, kDense, true>;
+    default: return replay_lanes_kernel<kDense>;
+  }
 }
 
-Kernel pick_kernel(bool wave, bool tap, bool dense) {
-  return dense ? pick_kernel<true>(wave, tap) : pick_kernel<false>(wave, tap);
+Kernel pick_kernel(int kind, bool tap, bool dense) {
+  return dense ? pick_kernel<true>(kind, tap) : pick_kernel<false>(kind, tap);
 }
 
 // Blocks the device holds resident for `kernel` (resident blocks per SM
 // times the SM count, both asked of the runtime and kept per device).
-cudaError_t resident_blocks(bool wave, bool tap, bool dense, int device, int* blocks) {
-  static int resident[MAX_DEVICES][2][2][2];
+cudaError_t resident_blocks(int kind, bool tap, bool dense, int device, int* blocks) {
+  static int resident[MAX_DEVICES][4][2][2];
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  int& kept = resident[device][wave][tap][dense];
+  int& kept = resident[device][kind][tap][dense];
   if (kept == 0) {
     int per_sm = 0, sms = 0;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_kernel(wave, tap, dense), THREADS, 0);
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_kernel(kind, tap, dense), THREADS, 0);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
@@ -801,7 +1201,7 @@ cudaError_t resident_blocks(bool wave, bool tap, bool dense, int device, int* bl
   return cudaSuccess;
 }
 
-int launch(bool wave, int device, void* stream, const Args& a) {
+int launch(int kind, int device, void* stream, const Args& a) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -811,12 +1211,12 @@ int launch(bool wave, int device, void* stream, const Args& a) {
   const bool tap = a.tap != nullptr;
   const bool dense = a.dens != nullptr;
   int blocks = 0;
-  err = resident_blocks(wave, tap, dense, device, &blocks);
+  err = resident_blocks(kind, tap, dense, device, &blocks);
   if (err != cudaSuccess) return (int)err;
   const int per_block = THREADS * QUEUE_PER_THREAD;
   const int wanted = (int)(((long long)a.n + per_block - 1) / per_block);
   if (wanted < blocks) blocks = wanted;
-  pick_kernel(wave, tap, dense)<<<blocks, THREADS, 0, s>>>(a);
+  pick_kernel(kind, tap, dense)<<<blocks, THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -865,7 +1265,7 @@ int vpt_trace_lanes(int device, void* stream, float* sf, int* si, const int* pid
   a.n = n; a.max_steps = max_steps;
   set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
              fp, ip, scratch, tap, stat);
-  return launch(false, device, stream, a);
+  return launch(kTraceKind, device, stream, a);
 }
 
 // One sample for each of n pixels, added to film [H * W, 4] float32 in
@@ -885,7 +1285,52 @@ int vpt_render_wave(int device, void* stream, float* film, const int* pids, int 
   a.n = n; a.max_steps = max_steps; a.stream = stream_word;
   set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
              fp, ip, scratch, tap, stat);
-  return launch(true, device, stream, a);
+  return launch(kWaveKind, device, stream, a);
+}
+
+// The record instantiation of trace_lanes_kernel: vpt_trace_lanes's
+// contract, and each lane's NEE walks recorded into tf [n, k_walks] (zeroed
+// by the caller before a lane's first launch) with wc [n] the walks started,
+// both in place (diff/prb.py _trace_rays_record's encoding).
+int vpt_record_lanes(int device, void* stream, float* sf, int* si, int* wc, float* tf, int k_walks,
+                     const int* pids, const int* streams, int n, int max_steps,
+                     const float* rows, int n_rows, int row_w,
+                     const float* trows, int n_trows, const float* bb_pairs,
+                     const float* dens, int n_dens, const float* maj, int n_maj,
+                     const float* tdata, int n_tdata,
+                     const float* fp, const int* ip, int* scratch) {
+  Args a{};
+  a.sf = sf; a.si = si; a.pids = pids; a.streams = streams;
+  a.n = n; a.max_steps = max_steps; a.wc = wc; a.tf = tf; a.k_walks = k_walks;
+  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
+             fp, ip, scratch, nullptr, nullptr);
+  return launch(kRecordKind, device, stream, a);
+}
+
+// The backward replay of n lanes (diff/prb.py replay_grads): sf / si the
+// forward's initial state (init_state, read only), tf [n, k_walks] its
+// recorded residuals (k_walks 0: none, PRE+GRAD for every walk), g [n, 3]
+// the cotangent, Lf [n, 3] the forward radiance; a lane retires at counter
+// max_iters (truncation parity) or after max_steps steps. Adds into the
+// corner-row tables gd and gt (gt null without emission) with float
+// atomics; gacc / nsteps [n], or null, get each lane's replayed <g, L> and
+// its steps.
+int vpt_replay_lanes(int device, void* stream, float* sf, int* si, const float* tf, int k_walks,
+                     const int* pids, const int* streams, int n, int max_steps, int max_iters,
+                     const float* g, const float* Lf, float* gd, float* gt, float* gacc, int* nsteps,
+                     const float* rows, int n_rows, int row_w,
+                     const float* trows, int n_trows, const float* bb_pairs,
+                     const float* dens, int n_dens, const float* maj, int n_maj,
+                     const float* tdata, int n_tdata,
+                     const float* fp, const int* ip, int* scratch) {
+  Args a{};
+  a.sf = sf; a.si = si; a.pids = pids; a.streams = streams;
+  a.n = n; a.max_steps = max_steps; a.max_iters = max_iters;
+  a.tf = const_cast<float*>(tf); a.k_walks = k_walks;
+  a.g = g; a.Lf = Lf; a.gd = gd; a.gt = gt; a.gacc = gacc; a.nsteps = nsteps;
+  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
+             fp, ip, scratch, nullptr, nullptr);
+  return launch(kReplayKind, device, stream, a);
 }
 
 // Resident blocks of the two production kernels on `device` (see
@@ -894,9 +1339,9 @@ int vpt_occupancy(int device, int dense, int* wave_blocks, int* trace_blocks, in
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   *threads = THREADS;
-  err = resident_blocks(true, false, dense != 0, device, wave_blocks);
+  err = resident_blocks(kWaveKind, false, dense != 0, device, wave_blocks);
   if (err != cudaSuccess) return (int)err;
-  err = resident_blocks(false, false, dense != 0, device, trace_blocks);
+  err = resident_blocks(kTraceKind, false, dense != 0, device, trace_blocks);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }

@@ -53,9 +53,16 @@ def _window_max(x: torch.Tensor, axis: int, win: int, stride: int, pad_lo: int, 
     return xp.unfold(axis, win, stride).amax(dim=-1)
 
 
-def build_majorants(grid: DenseGrid, order: int = 1) -> MajorantPyramid:
-    """Build the majorant pyramid for a density grid (forward rendering:
-    no bloat; `order` is the interpolation halo in voxels)."""
+def build_majorants(grid: DenseGrid, order: int = 1, bloat: float = 0.0) -> MajorantPyramid:
+    """Build the majorant pyramid for a density grid; gradients are cut
+    (majorants are bounds, not integrands).
+
+    order: the interpolation halo in voxels. bloat: multiplicative slack
+    (1 + bloat) on the brick majorants, so on every nonzero one. Forward
+    rendering wants 0 (fewest collisions); gradient rendering wants > 0: where
+    the majorant equals the density, the null-collision probability is 0 and
+    the score-function estimator of the transmittance gradient degenerates.
+    """
     data = grid.data.detach()
     X, Y, Z = data.shape
     bx, by, bz = _ceil_div(X, BRICK), _ceil_div(Y, BRICK), _ceil_div(Z, BRICK)
@@ -66,6 +73,8 @@ def build_majorants(grid: DenseGrid, order: int = 1) -> MajorantPyramid:
     for axis, ph in enumerate(pad_hi):
         brick = _window_max(brick, axis, win, BRICK, order, ph)
     brick = torch.clamp(brick, min=0.0).contiguous()
+    if bloat:
+        brick = brick * (1.0 + bloat)
 
     sx, sy, sz = _ceil_div(bx, SUPER), _ceil_div(by, SUPER), _ceil_div(bz, SUPER)
     sp = F.pad(

@@ -24,10 +24,22 @@ array, the majorant pairs and the dense temperature array.
   trace_rays_fused   a ray batch through trace_lanes, same contract as
                      integrator.trace_rays.
 
-WAVE_LAUNCHES, LAUNCHES, PLAIN_WAVE_LAUNCHES and PLAIN_LAUNCHES count the
-launches of each, and DENSE_WAVE_LAUNCHES / DENSE_LAUNCHES those of the dense
-instantiations among them, so a run can show which one its main path went
-through.
+The gradient path (diff/prb.py trace_rays_prb) has two more:
+
+  record_lanes       the forward of a train step: the record instantiation
+                     of trace_lanes_kernel, which runs the same lane step and
+                     records each NEE walk's residual; on CPU tensors its
+                     plain version, diff/prb.py _trace_rays_record.
+  replay_lanes       the backward: replay_lanes_kernel walks each lane's path
+                     again from its draw counters and adds the gradient into
+                     corner-row tables with float atomics, then the tables
+                     are folded (prb.fold_corner_rows); on CPU tensors its
+                     plain version, diff/prb.py replay_grads.
+
+WAVE_LAUNCHES, LAUNCHES, RECORD_LAUNCHES, REPLAY_LAUNCHES and the PLAIN_*
+counters of the plain versions count the launches of each, and the DENSE_*
+counters those of the dense instantiations among them, so a run can show
+which one its main path went through.
 
 The kernels are compiled with nvcc at first use, from the checkout's own
 source, into volume_path_tracer_tpu_torch/_build/ (one library per source
@@ -49,6 +61,14 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..diff.prb import (
+    MAX_RECORD_ITERS,
+    _trace_rays_record,
+    dot3,
+    fold_corner_rows,
+    replay_grads,
+    replay_iteration_cap,
+)
 from ..models.camera import Camera
 from ..models.medium import Medium
 from ..ops.phase import INV_4PI
@@ -88,6 +108,12 @@ PLAIN_LAUNCHES = 0  # plain-version runs (trace_lanes_plain)
 # without the fused table).
 DENSE_WAVE_LAUNCHES = 0
 DENSE_LAUNCHES = 0
+RECORD_LAUNCHES = 0  # trace_lanes_kernel record launches (record_lanes on CUDA tensors)
+REPLAY_LAUNCHES = 0  # replay_lanes_kernel launches (replay_lanes on CUDA tensors)
+PLAIN_RECORD_LAUNCHES = 0  # plain-version runs (record_lanes_plain)
+PLAIN_REPLAY_LAUNCHES = 0  # plain-version runs (replay_lanes_plain)
+DENSE_RECORD_LAUNCHES = 0
+DENSE_REPLAY_LAUNCHES = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "trace_lanes.cu")
@@ -247,6 +273,12 @@ def _library():
         for fn in (lib.vpt_trace_lanes, lib.vpt_render_wave, lib.vpt_occupancy,
                    lib.vpt_num_fparams, lib.vpt_num_iparams):
             fn.restype = i
+        # rows .. scratch, without tap and stat. (A forward-only variant of
+        # the source, timed by chip_smoke.py --variants, has neither.)
+        if hasattr(lib, "vpt_record_lanes"):
+            lib.vpt_record_lanes.argtypes = [i, p, p, p, p, p, i, p, p, i, i, *tables[:-2]]
+            lib.vpt_replay_lanes.argtypes = [i, p, p, p, p, i, p, p, i, i, i, p, p, p, p, p, p, *tables[:-2]]
+            lib.vpt_record_lanes.restype = lib.vpt_replay_lanes.restype = i
         lib.vpt_error_string.argtypes = [i]
         lib.vpt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -601,6 +633,145 @@ def render_wave(
     # The scratch belongs to the next launch too: hand out a copy.
     out = consts.scratch[1:3].clone()
     return out[1], out[0]
+
+
+# --------------------------------------------------------- gradient path ----
+
+def _ray_batch(what: str, medium: Medium, params: IntegratorParams, bb_table, o_world, d_world, pixel_ids,
+               stream):
+    """What a gradient-path launch takes of a ray batch on a CUDA device:
+    (device, sf, si of init_state, pixel ids and streams as int32 bits, the
+    scene's constants, the table arguments without tap and stat)."""
+    if o_world.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {o_world.device}")
+    dev = o_world.device
+    sf, si = pack_state(init_state(medium, o_world, d_world, params))
+    n = sf.shape[1]
+    consts = kernel_constants(medium, params, bb_table)
+    pids = _as_i32_bits(pixel_ids.to(dev))
+    _check(pids, "pixel_ids", torch.int32, (n,), dev)
+    strm = _as_i32_bits(lane_streams(stream, n, dev))
+    return dev, sf, si, pids, strm, consts, _table_args(medium, consts, dev, None, None)[:-2]
+
+
+def record_lanes_plain(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
+                       o_world: torch.Tensor, d_world: torch.Tensor, pixel_ids: torch.Tensor, stream,
+                       k_walks: int):
+    """record_lanes's plain version: diff/prb.py _trace_rays_record."""
+    global PLAIN_RECORD_LAUNCHES
+    PLAIN_RECORD_LAUNCHES += 1
+    return _trace_rays_record(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k_walks)
+
+
+def record_lanes(
+    medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
+    o_world: torch.Tensor, d_world: torch.Tensor, pixel_ids: torch.Tensor, stream, k_walks: int,
+):
+    """The forward of the gradient path: (radiance [N, 3], tf [N, k_walks]),
+    where tf holds each lane's NEE walk residuals (diff/prb.py
+    _trace_rays_record's encoding), up to params.max_iters steps a lane.
+
+    On CUDA tensors this launches the record instantiation of
+    trace_lanes_kernel once (the same lane step as trace_lanes, so the
+    radiance is trace_rays_fused's), or raises; on CPU tensors it runs
+    record_lanes_plain. Refuses max_iters >= 2^24, where a counter would not
+    be exact as a float32 residual.
+    """
+    if o_world.device.type == "cpu":
+        return record_lanes_plain(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k_walks)
+    if params.max_iters >= MAX_RECORD_ITERS:
+        raise ValueError(f"max_iters {params.max_iters} >= 2^24: counters would not be exact residuals")
+    if k_walks < 0:
+        raise ValueError(f"k_walks must be >= 0, got {k_walks}")
+    dev, sf, si, pids, strm, consts, tables = _ray_batch("record_lanes", medium, params, bb_table, o_world,
+                                                         d_world, pixel_ids, stream)
+    n = sf.shape[1]
+    tf = torch.zeros((n, k_walks), dtype=torch.float32, device=dev)
+    wc = torch.zeros((n,), dtype=torch.int32, device=dev)
+    err = _library().vpt_record_lanes(
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream, sf.data_ptr(), si.data_ptr(),
+        wc.data_ptr(), tf.data_ptr(), int(k_walks), pids.data_ptr(), strm.data_ptr(), n,
+        int(params.max_iters), *tables,
+    )
+    _raise_on(err, "record_lanes launch")
+    global RECORD_LAUNCHES, DENSE_RECORD_LAUNCHES
+    RECORD_LAUNCHES += 1
+    DENSE_RECORD_LAUNCHES += consts.dense
+    return sf[10:13].T, tf
+
+
+def replay_lanes_plain(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
+                       o_world, d_world, pixel_ids, stream, L_fwd, g_vec, tf=None, with_check=False):
+    """replay_lanes's plain version: diff/prb.py replay_grads."""
+    global PLAIN_REPLAY_LAUNCHES
+    PLAIN_REPLAY_LAUNCHES += 1
+    return replay_grads(medium, params, bb_table, o_world, d_world, pixel_ids, stream, L_fwd, g_vec,
+                        with_check=with_check, tf=tf)
+
+
+def replay_lanes(
+    medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
+    o_world: torch.Tensor, d_world: torch.Tensor, pixel_ids: torch.Tensor, stream,
+    L_fwd: torch.Tensor, g_vec: torch.Tensor, tf: Optional[torch.Tensor] = None,
+    with_check: bool = False, lane_steps: Optional[torch.Tensor] = None,
+    row_tables: Optional[list] = None,
+):
+    """The backward of the gradient path: (d_density [X, Y, Z],
+    d_temperature or None), with diff/prb.py replay_grads's contract (and
+    its (gL_acc, gL_tot) when with_check).
+
+    On CUDA tensors this launches replay_lanes_kernel once (or raises): one
+    thread replays one lane, refilled from a queue, and adds each event's 8
+    corner weights into corner-row tables [(X+1)(Y+1)(Z+1), 8] with two
+    16-byte float atomics; the tables are then folded (prb.fold_corner_rows).
+    Atomics add in another order on every run: the result equals the plain
+    version's to float tolerance, not bitwise. For measurement (CUDA only):
+    lane_steps, with with_check, an int32 [N] tensor that gets each lane's
+    replay steps; row_tables, a list that gets the unfolded tables (gd, gt).
+    On CPU tensors this runs replay_lanes_plain.
+    """
+    if o_world.device.type == "cpu":
+        return replay_lanes_plain(medium, params, bb_table, o_world, d_world, pixel_ids, stream, L_fwd,
+                                  g_vec, tf=tf, with_check=with_check)
+    dev, sf, si, pids, strm, consts, tables = _ray_batch("replay_lanes", medium, params, bb_table, o_world,
+                                                         d_world, pixel_ids, stream)
+    n = sf.shape[1]
+    g_vec = g_vec.to(torch.float32).contiguous()
+    L_fwd = L_fwd.to(torch.float32).contiguous()
+    _check(g_vec, "g_vec", torch.float32, (n, 3), dev)
+    _check(L_fwd, "L_fwd", torch.float32, (n, 3), dev)
+    k_walks = 0
+    if tf is not None:
+        k_walks = tf.shape[1]
+        _check(tf, "tf", torch.float32, (n, k_walks), dev)
+    X, Y, Z = medium.density.shape
+    gd = torch.zeros(((X + 1) * (Y + 1) * (Z + 1), 8), dtype=torch.float32, device=dev)
+    gt = None
+    if consts.emission:
+        tX, tY, tZ = medium.temperature.shape
+        gt = torch.zeros(((tX + 1) * (tY + 1) * (tZ + 1), 8), dtype=torch.float32, device=dev)
+    gacc = steps = None
+    if with_check:
+        gacc = torch.zeros((n,), dtype=torch.float32, device=dev)
+        steps = lane_steps if lane_steps is not None else torch.zeros((n,), dtype=torch.int32, device=dev)
+        _check(steps, "lane_steps", torch.int32, (n,), dev)
+    err = _library().vpt_replay_lanes(
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream, sf.data_ptr(), si.data_ptr(),
+        _ptr(tf), k_walks, pids.data_ptr(), strm.data_ptr(), n, replay_iteration_cap(params),
+        int(params.max_iters), g_vec.data_ptr(), L_fwd.data_ptr(), gd.data_ptr(), _ptr(gt), _ptr(gacc),
+        _ptr(steps), *tables,
+    )
+    _raise_on(err, "replay_lanes launch")
+    global REPLAY_LAUNCHES, DENSE_REPLAY_LAUNCHES
+    REPLAY_LAUNCHES += 1
+    DENSE_REPLAY_LAUNCHES += consts.dense
+    if row_tables is not None:
+        row_tables.extend((gd, gt))
+    d_density = fold_corner_rows(gd, (X, Y, Z))
+    d_temp = fold_corner_rows(gt, medium.temperature.shape) if gt is not None else None
+    if with_check:
+        return d_density, d_temp, gacc, dot3(g_vec, L_fwd)
+    return d_density, d_temp
 
 
 # --------------------------------------------------------- measurement ----

@@ -30,7 +30,7 @@ from ..utils import rng as vrng
 from ..utils.config import Configuration
 from ..utils.device import DeviceLike, resolve_device, same_device
 from ..utils.spectral import blackbody_xyz_table, breakpoints_for_max_temp
-from .integrator import IntegratorParams, emission_enabled
+from .integrator import IntegratorParams, emission_enabled, trace_rays_diff
 from .megakernel import JITTER_COUNTER, render_wave, trace_rays_fused
 
 
@@ -216,3 +216,26 @@ def render(
             f"eliminate the bias"
         )
     return film
+
+
+def render_radiance_diff(
+    scene: Scene,
+    wave: int,
+    n_iters: int,
+    raster_xy: torch.Tensor,
+    pixel_ids: torch.Tensor,
+    medium: Optional[Medium] = None,
+) -> torch.Tensor:
+    """Differentiable per-ray radiance [N, 3] for a pixel batch: the bounded
+    loop of integrator.trace_rays_diff under torch autograd.
+
+    `medium` overrides the scene's, so a caller can hand in grids that
+    require gradients (inverse rendering).
+    """
+    med = medium if medium is not None else scene.medium
+    bb = _bb_table_for(med, scene.params)
+    stream = vrng.mix_stream(scene.seed, wave)
+    u_jit = vrng.counter_uniforms(pixel_ids, stream, JITTER_COUNTER, 2)
+    jitter = u_jit * (0.5 if scene.use_jitter else 0.0)
+    o_w, d_w = scene.camera.generate_rays(raster_xy, jitter)
+    return trace_rays_diff(med, scene.params, bb, o_w, d_w, pixel_ids, stream, n_iters)

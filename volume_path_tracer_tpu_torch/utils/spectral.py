@@ -102,3 +102,28 @@ def blackbody_radiation_xyz_from_pairs(pairs: torch.Tensor, temperature_k: torch
     row = pairs[idx]
     out = row[..., :3] + row[..., 3:] * frac[..., None]
     return torch.where(t[..., None] <= 0.0, 0.0, out)
+
+
+def blackbody_radiation_xyz_value_grad(table: torch.Tensor, temperature_k: torch.Tensor):
+    """(xyz, d xyz / dT) [..., 3] each of the LUT lookup: the closed-form
+    derivative the replay backward pass uses (diff/prb.py).
+
+    The value is bitwise blackbody_radiation_xyz_from_pairs(blackbody_pairs(
+    table), T): hi - lo is the pair's stored slope. The derivative is that
+    slope / RESOLUTION inside the lerp's range and 0 where the T <= 0 guard
+    or the clamp is in effect, as reverse-mode AD of the lookup gives.
+    """
+    t = temperature_k
+    table = torch.as_tensor(table, dtype=torch.float32, device=t.device)
+    n = table.shape[0]
+    t_max = (n - 1) * RESOLUTION
+    tc = torch.clamp(t, 0.0, t_max - 1e-3)
+    idx = torch.floor(tc / RESOLUTION).to(torch.int64) + 1
+    idx = torch.clamp(idx, 0, n - 2)
+    frac = tc / RESOLUTION - (idx - 1).to(tc.dtype)
+    lo = table[idx]
+    slope = table[idx + 1] - lo
+    out = lo + slope * frac[..., None]
+    in_range = (t > 0.0) & (t < t_max - 1e-3)
+    grad = torch.where(in_range[..., None], slope / RESOLUTION, 0.0)
+    return torch.where(t[..., None] <= 0.0, 0.0, out), grad
