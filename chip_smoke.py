@@ -44,21 +44,33 @@ Phases, each stopping the run with a non-zero exit on failure:
               medium read back and the film against the direct build; then
               the procedural plume, and once more with --profile
   9. train    the gradient path (after phase 8's summary lines): the record
-              kernel's radiance bitwise against trace_lanes_kernel on the
-              flagship wave (packed and dense); on the three small scenes,
-              with media rebuilt by medium_with_params, packed and dense,
-              k_walks 16 and 0, the replay kernel's gradient grids against
-              the plain replay; the full 131,072-lane density step: both
-              kernels against their plain versions, their times and bounds,
-              and the accounting invariant on every lane; then bench.py's
-              three train cells (density packed and unpacked, joint density
-              and temperature) through make_train_step: train rays/s, the
-              step's device time by kernel, launches and peak memory
+              kernel (lanes born from the rays in the kernel) against
+              trace_lanes_kernel fed torch's init_state on the flagship wave
+              (packed and dense): radiance and counters bitwise; on the
+              three small scenes, with media rebuilt by medium_with_params,
+              packed and dense, k_walks 16 and 0, the replay kernel's
+              gradient grids (longest-first order) against the plain
+              replay; the full 131,072-lane density step: both kernels
+              against their plain versions, the accounting invariant on
+              every lane, each lane's replayed <g, L> bitwise with and
+              without the order, and step 0's lines for both kernels (time,
+              lane-steps, SIMT efficiency, idle tail, resident blocks,
+              registers and spills, bound; the replay in both orders); then
+              bench.py's three train cells (density packed and unpacked,
+              joint density and temperature) through make_train_step: train
+              rays/s, the step's device time by kernel, host launches a
+              step, busy share and peak memory
 
 The line before the last is the kernels' JSON record (launches on the main
 path, error against the plain version, times and bound); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. Images and the CLI's
 scene file go to chip_smoke_out/ (listed in .gitignore).
+
+Other modes: --phase 9 (phases 1, 2 and 9 alone, no result lines); --train
+[DIR] (the gradient kernels' times and the three train cells of the port in
+the checkout DIR, so that a parent commit unpacked with git archive and
+this one compare on one machine); --variants (variants of the kernel source
+timed in turns in one process, see variants()).
 """
 import json
 import os
@@ -170,27 +182,57 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# CUPTI windows each kernel_device_ms call takes, and the share of the
+# median kernel record below which a record is dropped.
+WINDOWS = 3
+LOW_RECORD = 0.7
+RECORD_COUNTS = {"taken": 0, "dropped": 0}
+
+
 def kernel_device_ms(fn, reps, kernel_name):
-    """Mean device milliseconds of the kernels named `kernel_name` over
-    `reps` calls of fn(), from CUPTI kernel records (no wrapper work, no
-    host time). CUPTI now and then drops records of a window's launches: a
-    window that kept fewer than all is taken again, up to three windows, and
-    the mean is over the records kept, at least half."""
+    """Device milliseconds of one launch of the kernels named `kernel_name`,
+    from CUPTI kernel records (no wrapper work, no host time): the mean of
+    the records kept from `reps` calls of fn() in each of WINDOWS profiler
+    windows. CUPTI now and then drops records of a window's launches: a
+    window that kept fewer than half of its records is taken again (at most
+    2 * WINDOWS windows in all). It also now and then reports launches at
+    about half their time, often most of one window's (seen on the H100,
+    cause unknown): a record under LOW_RECORD times the median of the call's
+    records is dropped, and counted in RECORD_COUNTS. Prints each window's
+    mean of all its records and the records dropped."""
+    import statistics
+
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    windows = []
+    for _ in range(2 * WINDOWS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kev = [e for e in prof.key_averages() if kernel_name in e.key]
-        n_kev = sum(e.count for e in kev)
-        if n_kev == reps:
+        recs = [e.device_time_total / 1e3 for e in prof.events()
+                if e.device_type == DeviceType.CUDA and kernel_name in e.name]
+        if reps // 2 <= len(recs) <= reps:
+            windows.append(recs)
+        if len(windows) == WINDOWS:
             break
-    check(reps // 2 <= n_kev <= reps, f"the profiler saw {n_kev} launches of {kernel_name} in {reps} calls")
-    return sum(e.self_device_time_total for e in kev) / n_kev / 1e3
+    check(len(windows) >= 2, f"the profiler kept too few records of {kernel_name} in {2 * WINDOWS} windows")
+    recs = [r for w in windows for r in w]
+    floor = LOW_RECORD * statistics.median(recs)
+    kept = [r for r in recs if r >= floor]
+    RECORD_COUNTS["taken"] += len(recs)
+    RECORD_COUNTS["dropped"] += len(recs) - len(kept)
+    print(f"  CUPTI windows of {kernel_name}: {'/'.join(f'{sum(w) / len(w):.4f}' for w in windows)} ms, "
+          f"records dropped {len(recs) - len(kept)} of {len(recs)}")
+    return sum(kept) / len(kept)
+
+
+def record_summary():
+    print(f"CUPTI kernel records: {RECORD_COUNTS['taken']} taken, {RECORD_COUNTS['dropped']} dropped as under "
+          f"{LOW_RECORD} of their call's median")
 
 
 def trace_statistic(L_k, nc_k, L_p, nc_p, what):
@@ -261,7 +303,7 @@ def tap_bytes(medium, params, bb_table, tap):
 
 def wave_kernel_report(scene, what, card):
     """render_wave_kernel on wave 1 of `scene`, alone: device time (CUPTI,
-    mean of 10), and from one measuring launch the lane-steps, what it read
+    kernel_device_ms of 10), and from one measuring launch the lane-steps, what it read
     of the medium, SIMT efficiency as issued and the idle tail. The bound
     counts each byte once: 16 B of film read and 16 B written per pixel and
     every distinct table row (unpacked: density and temperature sectors and
@@ -289,7 +331,7 @@ def wave_kernel_report(scene, what, card):
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"render_wave {what} ({n} pixels, one wave): kernel {ms:.4f} ms (device time, mean of 10); "
+    print(f"render_wave {what} ({n} pixels, one wave): kernel {ms:.4f} ms (device time, mean of the kept records of 3 windows of 10 launches); "
           f"lane-steps {st['lane_steps']} (longest lane {int(iters)}, n_capped {int(ncap)}); read "
           f"{read_words}; bound {bound_ms:.5f} ms ({by}: {bytes_moved} B = {n * 32} B film + {row_bytes} B "
           f"of the medium, "
@@ -425,6 +467,8 @@ TRAIN_CHAIN = 4
 # csrc/trace_lanes.cu beside OPS_PER_LANE_STEP's traversal: the suffix and
 # score weight, ratio tracking, the 8 corner weights times the event weight.
 OPS_PER_REPLAY_STEP = 200
+# Lanes of each small gradient case (phase 9 (b)).
+SMALL_LANES = 2048
 
 
 def rel_l2(a, b):
@@ -448,108 +492,70 @@ def device_split(prof, wall_s):
     return rec / 1e3, rep / 1e3, (total - rec - rep) / 1e3, total / 1e6 / wall_s, dev
 
 
-def train_phase(card, dev):
-    """Phase 9 on the CUDA device `dev`; returns the record and replay
-    kernels' entries of the kernels line."""
-    import numpy as np
+def host_calls(prof):
+    """(kernel launches, memsets, copies, syncs) the host issued in a
+    profile, from its CUDA runtime records."""
+    ka = prof.key_averages()
+
+    def calls(*keys):
+        return sum(e.count for e in ka if e.key in keys)
+
+    return (calls("cudaLaunchKernel", "cudaLaunchKernelExC"), calls("cudaMemsetAsync"),
+            calls("cudaMemcpyAsync"), calls("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+
+
+def ptxas_report(log_text):
+    """{kernel instantiation: (registers, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v report, with template arguments written
+    out (trace_lanes_kernel<false, false, true>)."""
+    import re
+
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"(render_wave_kernel|trace_lanes_kernel|replay_lanes_kernel)", mangled)
+            bools = re.findall(r"Lb(\d)E", mangled)
+            name = (base.group(1) if base else mangled) + "<" + ", ".join(
+                "true" if b == "1" else "false" for b in bools) + ">"
+            out[name] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def grad_api(mk, record_out):
+    """(L, tf, replay keyword arguments) of a record_lanes result, for this
+    checkout's wrappers (which also return the counters, and whose replay
+    takes the longest-first order built from them) and for an earlier
+    commit's (radiance and residuals only). The second branch serves only a
+    parent without the counters; once every parent has them it goes."""
+    L, tf = record_out[0], record_out[1]
+    if len(record_out) == 3:
+        return L, tf, {"order": mk.longest_first(record_out[2])}
+    return L, tf, {}
+
+
+def density_step(dev):
+    """bench.py's density train cell, first step: (packed medium, base
+    medium, params, camera, raster, pixel ids, the step's rays (o_w, d_w,
+    pids_k, stream_k))."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from volume_path_tracer_tpu_torch.diff import inverse as inv
-    from volume_path_tracer_tpu_torch.diff import prb
-    from volume_path_tracer_tpu_torch.grids.grid import dense_grid_from_array
-    from volume_path_tracer_tpu_torch.grids.procedural import fire_plume, fog_sphere
+    from volume_path_tracer_tpu_torch.grids.procedural import fog_sphere
     from volume_path_tracer_tpu_torch.models.camera import Camera
     from volume_path_tracer_tpu_torch.models.medium import Medium
     from volume_path_tracer_tpu_torch.render import integrator as integ
-    from volume_path_tracer_tpu_torch.render import megakernel as mk
-    from volume_path_tracer_tpu_torch.render.renderer import Scene, pixel_coords
-    from volume_path_tracer_tpu_torch.utils import rng as vrng
-    from volume_path_tracer_tpu_torch.utils.config import CameraParameters, loads_configuration
-    from volume_path_tracer_tpu_torch.utils.spectral import blackbody_xyz_table
+    from volume_path_tracer_tpu_torch.render.renderer import pixel_coords
+    from volume_path_tracer_tpu_torch.utils.config import CameraParameters
 
-    K = prb.DEFAULT_K_WALKS
-
-    # (a) the record kernel against trace_lanes_kernel on the flagship wave
-    flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
-    for pack in (True, False):
-        med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=pack)
-        sc = Scene.from_config(flag_cfg, med, max_iters=FLAGSHIP_MAX_ITERS)
-        W, H = sc.width, sc.height
-        pids = torch.arange(W * H, dtype=torch.int32, device=dev)
-        stream = vrng.mix_stream(sc.seed, 1)
-        u_jit = vrng.counter_uniforms(pids, stream, mk.JITTER_COUNTER, 2)
-        o_w, d_w = sc.camera.generate_rays(torch.from_numpy(pixel_coords(W, H)).to(dev), u_jit * 0.5)
-        ray_args = (med, sc.params, None, o_w, d_w, pids, stream)
-        L_t, _, _ = mk.trace_rays_fused(*ray_args)
-        L_r, tf = mk.record_lanes(*ray_args, K)
-        torch.cuda.synchronize()
-        same = bool(torch.equal(L_r, L_t))
-        walks = int((tf != 0).sum())
-        line = (f"record kernel, flagship wave ({W * H} lanes, {'packed' if pack else 'dense'}): radiance bitwise "
-                f"equal to trace_lanes_kernel's {same}; {walks} walks recorded in {K} slots a lane")
-        if pack:
-            rec_ms = kernel_device_ms(lambda: mk.record_lanes(*ray_args, K), 10, "trace_lanes_kernel")
-            tl_ms = kernel_device_ms(lambda: mk.trace_rays_fused(*ray_args), 10, "trace_lanes_kernel")
-            line += f"; record kernel {rec_ms:.4f} ms, trace_lanes_kernel {tl_ms:.4f} ms (device time, mean of 10)"
-        print(line + f" on {card}")
-        check(same, f"the record kernel's flagship radiance differs from trace_lanes_kernel's ({'packed' if pack else 'dense'})")
-        check(walks > 0, "the record kernel recorded no walk on the flagship wave")
-    del med, sc, L_t, L_r, tf
-
-    # (b) the replay kernel against the plain replay: three small scenes
-    # through medium_with_params, packed and dense, k_walks 16 and 0.
-    dens, temp = fire_plume(height=40, radius=10.0)
-    temp_al = dense_grid_from_array(temp.data, temp.origin_ijk, temp.voxel_size, (0.0, 0.0, 0.0))
-    bb = torch.from_numpy(blackbody_xyz_table()).to(dev)
-    cases = [
-        ("fog_sphere", (fog_sphere(radius=12.0, falloff=3.0),), integ.IntegratorParams(**FOG_PARAMS), None,
-         (-14, 14), (-14, 14)),
-        ("fire_plume", (dens, temp), integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10)),
-        ("fire_plume_aligned", (dens, temp_al), integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10)),
-    ]
-    N = 2048
-    worst = 0.0
-    t_cases = time.perf_counter()
-    for name, grids, prm, bbt, yr, zr in cases:
-        rng = np.random.default_rng(0)
-        o = torch.tensor(np.stack([np.full(N, -40.0), rng.uniform(*yr, N), rng.uniform(*zr, N)], -1),
-                         dtype=torch.float32, device=dev)
-        d = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(N, 3).contiguous()
-        lp = torch.arange(N, dtype=torch.int32, device=dev)
-        s = vrng.mix_stream(3, 1)
-        g_full = torch.tensor(np.random.default_rng(1).uniform(0.2, 1.0, (N, 3)), dtype=torch.float32, device=dev)
-        base = Medium.from_grids(*grids, pack=False)
-        og = inv.OptimizableGrids(inv.param_from_density(base.density.data),
-                                  base.temperature.data if base.temperature is not None else None)
-        for pack in (True, False):
-            med = inv.medium_with_params(base, og, pack=pack)
-            ray_args = (med, prm, bbt, o, d, lp, s)
-            L_k, tf_k = mk.record_lanes(*ray_args, K)
-            L_p, tf_p = mk.record_lanes_plain(*ray_args, K)
-            agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
-            check(float(agree.float().mean()) > 0.95, f"{name}: record kernel and plain agree on {float(agree.float().mean())}")
-            g = g_full * agree[:, None]
-            for kw in (K, 0):
-                gk = mk.replay_lanes(*ray_args, L_k, g, tf=tf_k if kw else None)
-                gp = mk.replay_lanes_plain(*ray_args, L_p, g, tf=tf_p if kw else None)
-                errs = []
-                for what, a, b in (("density", gk[0], gp[0]), ("temperature", gk[1], gp[1])):
-                    if b is None:
-                        continue
-                    check(float(b.abs().max()) > 0, f"{name}: zero plain {what} gradient")
-                    errs.append((what, rel_l2(a, b)))
-                worst = max([worst] + [e for _, e in errs])
-                print(f"replay kernel, {name} ({'packed' if pack else 'dense'}, k_walks {kw}, {N} lanes, "
-                      f"{int(agree.sum())} with the cotangent): relative L2 against the plain replay "
-                      + ", ".join(f"{w} {e:.2e}" for w, e in errs))
-                for what, e in errs:
-                    check(e <= 1e-3, f"{name} ({'packed' if pack else 'dense'}, k_walks {kw}): {what} gradient "
-                                     f"relative L2 {e} > 1e-3")
-    print(f"replay kernel, twelve small cases: worst relative L2 {worst:.2e} (bound 1e-3: float atomics add in "
-          f"another order every run, FMA contraction); {time.perf_counter() - t_cases:.1f} s with the plain versions")
-
-    # (c) the full density step: bench.py's density cell, first step
     coords = torch.from_numpy(pixel_coords(TRAIN_SIZE, TRAIN_SIZE)).to(dev)
     tpids = torch.arange(TRAIN_SIZE * TRAIN_SIZE, dtype=torch.int32, device=dev)
     wdas = integ.IntegratorParams(**dict(FOG_PARAMS, max_iters=TRAIN_ITERS))
@@ -559,87 +565,47 @@ def train_phase(card, dev):
     fog_base = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=False)
     med = inv.medium_with_params(fog_base, inv.OptimizableGrids(inv.param_from_density(fog_base.density.data)),
                                  pack=True)
-    o_w, d_w, pids_k, stream_k = inv.loss_rays(fog_cam, coords, tpids, (3, 1), TRAIN_K, True)
-    n = pids_k.shape[0]
-    ray_args = (med, wdas, None, o_w, d_w, pids_k, stream_k)
-    L_k, tf_k = mk.record_lanes(*ray_args, K)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    L_p, tf_p = mk.record_lanes_plain(*ray_args, K)
-    torch.cuda.synchronize()
-    record_plain_ms = (time.perf_counter() - t0) * 1e3
-    agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
-    close = float(agree.float().mean())
-    rel = ((L_k.mean(0) - L_p.mean(0)).abs() / (L_p.mean(0).abs() + 1e-9)).max()
-    record_max_abs = float((L_k - L_p).abs().max())
-    print(f"record kernel, density step ({n} lanes): lane-close {close:.4f} against the plain record, channel rel "
-          f"diff {float(rel):.2e}, max_abs_err {record_max_abs:.3e} (on lanes where rounding flips an event)")
-    check(close > 0.95 and float(rel) < 0.05, f"density step: record kernel lane-close {close}, channel diff {rel}")
-    g_full = torch.tensor(np.random.default_rng(2).uniform(0.2, 1.0, (n, 3)), dtype=torch.float32, device=dev)
-    steps = torch.zeros(n, dtype=torch.int32, device=dev)
-    tables = []
-    dk, _, acc, tot = mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k, with_check=True, lane_steps=steps,
-                                      row_tables=tables)
-    torch.cuda.synchronize()
-    bad = ~torch.isclose(acc, tot, rtol=1e-4, atol=1e-5)
-    n_bad = int(bad.sum())
-    worst_lanes = torch.nonzero(bad)[:8, 0].tolist()
-    print(f"accounting invariant, density step ({n} lanes, k_walks {K}): replayed <g, L> against <g, L_fwd> at rtol "
-          f"1e-4, atol 1e-5: {n - n_bad} lanes hold, {n_bad} miss"
-          + (f" (lanes {worst_lanes}: {acc[worst_lanes].tolist()} against {tot[worst_lanes].tolist()})" if n_bad else "")
-          + f"; max |acc - tot| {float((acc - tot).abs().max()):.3e}")
-    check(n_bad == 0, f"the accounting invariant fails on {n_bad} lanes of the density step, e.g. {worst_lanes}")
-    g = g_full * agree[:, None]
-    dk = mk.replay_lanes(*ray_args, L_k, g, tf=tf_k)[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dp = mk.replay_lanes_plain(*ray_args, L_p, g, tf=tf_p)[0]
-    torch.cuda.synchronize()
-    replay_plain_ms = (time.perf_counter() - t0) * 1e3
-    replay_err = rel_l2(dk, dp)
-    replay_max_abs = float((dk - dp).abs().max())
-    print(f"replay kernel, density step ({int(agree.sum())} of {n} lanes with the cotangent): relative L2 "
-          f"{replay_err:.2e}, max_abs_err {replay_max_abs:.3e} against the plain replay; plain versions: record "
-          f"{record_plain_ms:.1f} ms, replay {replay_plain_ms:.1f} ms")
-    check(replay_err <= 1e-3, f"density step: replay gradient relative L2 {replay_err} > 1e-3")
-    record_ms = kernel_device_ms(lambda: mk.record_lanes(*ray_args, K), 5, "trace_lanes_kernel")
-    replay_ms = kernel_device_ms(lambda: mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k), 5, "replay_lanes_kernel")
-    # Bounds, each byte once. The record reads what trace_lanes reads on the
-    # same batch (the same paths; one measuring launch marks it) and moves
-    # the state, pixel ids and streams, wc in and out and the residuals out.
-    # The replay walks the same paths (a PRE walk re-reads rows of its own
-    # ray), reads the initial state, ids, streams, g, L and the residuals,
-    # and writes the distinct corner rows it touched.
-    sf0, si0 = mk.pack_state(integ.init_state(med, o_w, d_w, wdas))
-    tap = mk.new_row_tap(med, wdas, None)
-    stat = mk.launch_stat(dev)
-    _, si_t = mk.trace_lanes(med, wdas, None, sf0, si0, pids_k, integ.lane_streams(stream_k, n, dev), TRAIN_ITERS,
-                             row_tap=tap, stat=stat)
-    torch.cuda.synchronize()
-    fwd_steps = int(si_t[2].to(torch.int64).sum())
-    row_bytes, read_words = tap_bytes(med, wdas, None, tap)
-    state_bytes = (len(mk.STATE_F32) + len(mk.STATE_I32)) * 4
-    rec_bytes = n * (2 * state_bytes + 8 + 8 + 4 * K) + row_bytes
-    rec_b_ms, rec_o_ms = rec_bytes / HBM_BYTES_PER_S * 1e3, fwd_steps * OPS_PER_LANE_STEP / FP32_OPS_PER_S * 1e3
-    rep_steps = int(steps.to(torch.int64).sum())
-    rows_written = int((tables[0] != 0).any(1).sum())
-    rep_bytes = n * (state_bytes + 8 + 24 + 4 * K) + row_bytes + rows_written * 32
-    rep_b_ms, rep_o_ms = rep_bytes / HBM_BYTES_PER_S * 1e3, rep_steps * OPS_PER_REPLAY_STEP / FP32_OPS_PER_S * 1e3
-    rec_bound, rep_bound = max(rec_b_ms, rec_o_ms), max(rep_b_ms, rep_o_ms)
-    rec_by = "bytes" if rec_b_ms >= rec_o_ms else "operations"
-    rep_by = "bytes" if rep_b_ms >= rep_o_ms else "operations"
-    print(f"record kernel, density step ({n} lanes): {record_ms:.4f} ms (device time, mean of 5); plain version "
-          f"{record_plain_ms:.1f} ms; lane-steps {fwd_steps}; read {read_words}; bound {rec_bound:.5f} ms ({rec_by}: "
-          f"{rec_bytes} B, {rec_b_ms:.5f} ms; {fwd_steps * OPS_PER_LANE_STEP} fp32 ops, {rec_o_ms:.5f} ms) = "
-          f"{rec_bound / record_ms:.4f} of the kernel's time on {card}")
-    print(f"replay kernel, density step ({n} lanes): {replay_ms:.4f} ms (device time, mean of 5); plain version "
-          f"{replay_plain_ms:.1f} ms; lane-steps {rep_steps} ({rep_steps / max(fwd_steps, 1):.3f} of the forward's); "
-          f"{rows_written} corner rows written; bound {rep_bound:.5f} ms ({rep_by}: {rep_bytes} B, {rep_b_ms:.5f} ms; "
-          f"{rep_steps * OPS_PER_REPLAY_STEP} fp32 ops, {rep_o_ms:.5f} ms) = {rep_bound / replay_ms:.4f} of the "
-          f"kernel's time on {card}")
-    del L_p, tf_p, dp, sf0, si0, tap, tables
+    rays = inv.loss_rays(fog_cam, coords, tpids, (3, 1), TRAIN_K, True)
+    return med, fog_base, wdas, fog_cam, coords, tpids, rays
 
-    # (d) bench.py's three train cells through make_train_step
+
+def grad_kernel_times(mk, med, wdas, rays, g, reps=5):
+    """(record ms, replay ms) on the density step, CUPTI, mean of `reps`
+    each, through whichever wrapper contract the package has (grad_api)."""
+    import torch
+
+    K = 16
+    ray_args = (med, wdas, None, *rays)
+    out = mk.record_lanes(*ray_args, K)
+    L, tf, kw = grad_api(mk, out)
+    torch.cuda.synchronize()
+    rec_ms = kernel_device_ms(lambda: mk.record_lanes(*ray_args, K), reps, "trace_lanes_kernel")
+    rep_ms = kernel_device_ms(lambda: mk.replay_lanes(*ray_args, L, g, tf=tf, **kw), reps, "replay_lanes_kernel")
+    return rec_ms, rep_ms
+
+
+def train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids):
+    """bench.py's three train cells through make_train_step: train rays/s
+    (best of 3 chains of TRAIN_CHAIN steps), launches, peak memory, and one
+    profiled step (device time by kernel, busy share, host calls). Uses only
+    what every commit of the port since the gradient path has, so an earlier
+    commit's package can be timed by the same code (--train). Returns
+    ({"record": launches, "replay": launches}, {cell: summary})."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from volume_path_tracer_tpu_torch.diff import inverse as inv
+    from volume_path_tracer_tpu_torch.diff import prb
+    from volume_path_tracer_tpu_torch.grids.procedural import fire_plume
+    from volume_path_tracer_tpu_torch.models.camera import Camera
+    from volume_path_tracer_tpu_torch.models.medium import Medium
+    from volume_path_tracer_tpu_torch.render import integrator as integ
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+    from volume_path_tracer_tpu_torch.utils.config import CameraParameters
+    from volume_path_tracer_tpu_torch.utils.spectral import blackbody_xyz_table
+
+    bb = torch.from_numpy(blackbody_xyz_table()).to(dev)
     fire_dens, fire_temp = fire_plume(height=96, radius=28.0)
     joint_base = Medium.from_grids(fire_dens, fire_temp, pack=False)
     fire_cam = Camera.from_parameters(
@@ -653,7 +619,7 @@ def train_phase(card, dev):
     ]
     target = torch.zeros((TRAIN_SIZE * TRAIN_SIZE, 3), dtype=torch.float32, device=dev)
     launches = {"record": 0, "replay": 0}
-    train_rays = {}
+    summary = {}
     for label, base, prm, cam, bbt, pack, dual, seed in cells:
         grids = inv.OptimizableGrids(
             inv.param_from_density(base.density.data).clone().requires_grad_(True),
@@ -691,8 +657,8 @@ def train_phase(card, dev):
         check(all(np.isfinite(losses)) and finite and grads_finite, f"{label}: loss, grids or gradients not finite")
         best = min(chains)
         rays_s = TRAIN_SIZE * TRAIN_SIZE * TRAIN_K * TRAIN_CHAIN / best
-        train_rays[label] = rays_s
-        # One step profiled: device time by kernel (CUPTI records only).
+        # One step profiled: device time by kernel (CUPTI records only) and
+        # what the host issued.
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -700,12 +666,13 @@ def train_phase(card, dev):
             float(loss)
             wall = time.perf_counter() - t0
         rec, rep, rest, busy, kern = device_split(prof, wall)
+        n_launch, n_memset, n_copy, n_sync = host_calls(prof)
         top = sorted((e for e in kern if "lanes_kernel" not in e.key), key=lambda e: -e.self_device_time_total)[:3]
         host_top = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
                           key=lambda e: -e.self_cpu_time_total)[:5]
         step_s = best / TRAIN_CHAIN
         # The host's share: the medium rebuilt (majorants, tables) and the
-        # kernels' constants made for the new medium, timed alone.
+        # kernels' constants found for the new medium, timed alone.
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m2 = inv.medium_with_params(base, grids, pack=pack)
@@ -724,11 +691,302 @@ def train_phase(card, dev):
               f"{rec + rep + rest:.3f} ms = record kernel {rec:.3f} + replay kernel {rep:.3f} + the rest {rest:.3f} "
               f"(most: " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}" for e in top)
               + f"), device busy share {busy:.3f} of the profiled step and {(rec + rep + rest) / 1e3 / step_s:.3f} of "
-              f"the best chain's {step_s * 1e3:.3f} ms a step; host, most self time: "
+              f"the best chain's {step_s * 1e3:.3f} ms a step; host: {n_launch} kernel launches, {n_memset} memsets, "
+              f"{n_copy} copies, {n_sync} syncs in the step; most self time: "
               + ", ".join(f"{e.key[:32]} {e.self_cpu_time_total / 1e3:.2f} ms ({e.count}x)" for e in host_top)
-              + f"; medium rebuild {rebuild_ms:.2f} ms, kernel constants {consts_ms:.2f} ms (host clock) on {card}")
+              + f"; medium rebuild {rebuild_ms:.2f} ms, kernel constants {consts_ms:.2f} ms (host clock) on {card}",
+              flush=True)
+        summary[label] = dict(rays_s=rays_s, step_ms=step_s * 1e3, device_ms=rec + rep + rest, record_ms=rec,
+                              replay_ms=rep, rest_ms=rest, busy=busy, launches=n_launch, peak_gb=peak / 1e9,
+                              constants_ms=consts_ms)
         del grids, opt, step, m2
-    print("train rays/s: " + json.dumps({k: round(v, 1) for k, v in train_rays.items()}) + f" on {card}")
+    print("train rays/s: " + json.dumps({k: round(v["rays_s"], 1) for k, v in summary.items()}) + f" on {card}")
+    return launches, summary
+
+
+def measuring_launch(mk, medium, params, dev, launch):
+    """launch(row_tap, stat) once with a fresh tap and stat; returns
+    (read_launch_stat, the tap)."""
+    import torch
+
+    tap = mk.new_row_tap(medium, params, None)
+    stat = mk.launch_stat(dev)
+    launch(tap, stat)
+    torch.cuda.synchronize()
+    return mk.read_launch_stat(stat), tap
+
+
+def train_phase(card, dev):
+    """Phase 9 on the CUDA device `dev`; returns the record and replay
+    kernels' entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from volume_path_tracer_tpu_torch.diff import inverse as inv
+    from volume_path_tracer_tpu_torch.diff import prb
+    from volume_path_tracer_tpu_torch.grids.grid import dense_grid_from_array
+    from volume_path_tracer_tpu_torch.grids.procedural import fire_plume, fog_sphere
+    from volume_path_tracer_tpu_torch.models.medium import Medium
+    from volume_path_tracer_tpu_torch.render import integrator as integ
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+    from volume_path_tracer_tpu_torch.render.renderer import Scene, pixel_coords
+    from volume_path_tracer_tpu_torch.utils import rng as vrng
+    from volume_path_tracer_tpu_torch.utils.config import loads_configuration
+    from volume_path_tracer_tpu_torch.utils.spectral import blackbody_xyz_table
+
+    K = prb.DEFAULT_K_WALKS
+
+    # (a) the record kernel against trace_lanes_kernel on the flagship wave:
+    # the same rays, the record's lanes born in the kernel, trace_lanes's
+    # from torch's init_state: radiance and counters bitwise
+    flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
+    for pack in (True, False):
+        med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=pack)
+        sc = Scene.from_config(flag_cfg, med, max_iters=FLAGSHIP_MAX_ITERS)
+        W, H = sc.width, sc.height
+        pids = torch.arange(W * H, dtype=torch.int32, device=dev)
+        stream = vrng.mix_stream(sc.seed, 1)
+        u_jit = vrng.counter_uniforms(pids, stream, mk.JITTER_COUNTER, 2)
+        o_w, d_w = sc.camera.generate_rays(torch.from_numpy(pixel_coords(W, H)).to(dev), u_jit * 0.5)
+        ray_args = (med, sc.params, None, o_w, d_w, pids, stream)
+        sf0, si0 = mk.pack_state(integ.init_state(med, o_w, d_w, sc.params))
+        sf_t, si_t = mk.trace_lanes(med, sc.params, None, sf0, si0, pids, integ.lane_streams(stream, W * H, dev),
+                                    sc.params.max_iters)
+        L_r, tf, ctr = mk.record_lanes(*ray_args, K)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(L_r, sf_t[10:13].T))
+        same_ctr = bool(torch.equal(ctr, si_t[2]))
+        walks = int((tf != 0).sum())
+        line = (f"record kernel, flagship wave ({W * H} lanes, {'packed' if pack else 'dense'}): radiance bitwise "
+                f"equal to trace_lanes_kernel's {same}, counters bitwise equal {same_ctr}; {walks} walks recorded "
+                f"in {K} slots a lane")
+        if pack:
+            rec_ms = kernel_device_ms(lambda: mk.record_lanes(*ray_args, K), 10, "trace_lanes_kernel")
+            tl_ms = kernel_device_ms(lambda: mk.trace_rays_fused(*ray_args), 10, "trace_lanes_kernel")
+            line += f"; record kernel {rec_ms:.4f} ms, trace_lanes_kernel {tl_ms:.4f} ms (device time, mean of the kept records of 3 windows of 10 launches)"
+        print(line + f" on {card}", flush=True)
+        check(same, f"the record kernel's flagship radiance differs from trace_lanes_kernel's ({'packed' if pack else 'dense'})")
+        check(same_ctr, f"the record kernel's counters differ from trace_lanes_kernel's ({'packed' if pack else 'dense'})")
+        check(walks > 0, "the record kernel recorded no walk on the flagship wave")
+    del med, sc, L_r, tf, sf0, si0, sf_t, si_t
+    # The same at a voxel size of 0.1: the kernel divides by it, torch's
+    # init_state multiplies by its reciprocal, so a lane may start an ulp
+    # apart. Measured and held to the kernel-against-plain statistic, not
+    # bitwise.
+    v = 0.1
+    med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0, voxel_size=v), pack=True)
+    rng = np.random.default_rng(4)
+    n_v = 65536
+    o_v = torch.tensor(np.stack([np.full(n_v, -50 * v), rng.uniform(-36 * v, 36 * v, n_v),
+                                 rng.uniform(-36 * v, 36 * v, n_v)], -1), dtype=torch.float32, device=dev)
+    aim = torch.tensor(rng.uniform(-20 * v, 20 * v, (n_v, 3)), dtype=torch.float32, device=dev)
+    d_v = torch.nn.functional.normalize(aim - o_v, dim=-1)
+    pids = torch.arange(n_v, dtype=torch.int32, device=dev)
+    stream = vrng.mix_stream(5, 1)
+    prm = integ.IntegratorParams(**FOG_PARAMS)
+    sf0, si0 = mk.pack_state(integ.init_state(med, o_v, d_v, prm))
+    sf_t, si_t = mk.trace_lanes(med, prm, None, sf0, si0, pids, integ.lane_streams(stream, n_v, dev),
+                                prm.max_iters)
+    L_r, _, ctr = mk.record_lanes(med, prm, None, o_v, d_v, pids, stream, K)
+    L_t = sf_t[10:13].T
+    bitwise = float((L_r == L_t).all(-1).float().mean())
+    close = float(torch.isclose(L_r, L_t, rtol=1e-4, atol=1e-5).all(-1).float().mean())
+    same_ctr = float((ctr == si_t[2]).float().mean())
+    print(f"record kernel at voxel size {v} ({n_v} lanes, packed): lanes bitwise equal to trace_lanes_kernel's "
+          f"{bitwise:.4f}, lane-close {close:.4f} (rtol 1e-4, atol 1e-5), counters equal {same_ctr:.4f}, "
+          f"radiance relative L2 {rel_l2(L_r, L_t):.2e} on {card}", flush=True)
+    check(close > 0.95, f"voxel size {v}: record kernel and trace_lanes_kernel lane-close {close} <= 0.95")
+    del med, o_v, d_v, aim, sf0, si0, sf_t, si_t, L_r, L_t, ctr
+
+    # (b) the replay kernel (longest-first order, as on the main path)
+    # against the plain replay: three small scenes through
+    # medium_with_params, packed and dense, k_walks 16 and 0.
+    dens, temp = fire_plume(height=40, radius=10.0)
+    temp_al = dense_grid_from_array(temp.data, temp.origin_ijk, temp.voxel_size, (0.0, 0.0, 0.0))
+    bb = torch.from_numpy(blackbody_xyz_table()).to(dev)
+    cases = [
+        ("fog_sphere", (fog_sphere(radius=12.0, falloff=3.0),), integ.IntegratorParams(**FOG_PARAMS), None,
+         (-14, 14), (-14, 14)),
+        ("fire_plume", (dens, temp), integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10)),
+        ("fire_plume_aligned", (dens, temp_al), integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10)),
+    ]
+    N = SMALL_LANES
+    worst = 0.0
+    t_cases = time.perf_counter()
+    for name, grids, prm, bbt, yr, zr in cases:
+        rng = np.random.default_rng(0)
+        o = torch.tensor(np.stack([np.full(N, -40.0), rng.uniform(*yr, N), rng.uniform(*zr, N)], -1),
+                         dtype=torch.float32, device=dev)
+        d = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(N, 3).contiguous()
+        lp = torch.arange(N, dtype=torch.int32, device=dev)
+        s = vrng.mix_stream(3, 1)
+        g_full = torch.tensor(np.random.default_rng(1).uniform(0.2, 1.0, (N, 3)), dtype=torch.float32, device=dev)
+        base = Medium.from_grids(*grids, pack=False)
+        og = inv.OptimizableGrids(inv.param_from_density(base.density.data),
+                                  base.temperature.data if base.temperature is not None else None)
+        for pack in (True, False):
+            med = inv.medium_with_params(base, og, pack=pack)
+            ray_args = (med, prm, bbt, o, d, lp, s)
+            L_k, tf_k, ctr_k = mk.record_lanes(*ray_args, K)
+            L_p, tf_p, ctr_p = mk.record_lanes_plain(*ray_args, K)
+            agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
+            check(float(agree.float().mean()) > 0.95, f"{name}: record kernel and plain agree on {float(agree.float().mean())}")
+            g = g_full * agree[:, None]
+            for kw in (K, 0):
+                gk = mk.replay_lanes(*ray_args, L_k, g, tf=tf_k if kw else None, order=mk.longest_first(ctr_k))
+                gp = mk.replay_lanes_plain(*ray_args, L_p, g, tf=tf_p if kw else None)
+                errs = []
+                for what, a, b in (("density", gk[0], gp[0]), ("temperature", gk[1], gp[1])):
+                    if b is None:
+                        continue
+                    check(float(b.abs().max()) > 0, f"{name}: zero plain {what} gradient")
+                    errs.append((what, rel_l2(a, b)))
+                worst = max([worst] + [e for _, e in errs])
+                print(f"replay kernel, {name} ({'packed' if pack else 'dense'}, k_walks {kw}, {N} lanes, "
+                      f"{int(agree.sum())} with the cotangent): relative L2 against the plain replay "
+                      + ", ".join(f"{w} {e:.2e}" for w, e in errs))
+                for what, e in errs:
+                    check(e <= 1e-3, f"{name} ({'packed' if pack else 'dense'}, k_walks {kw}): {what} gradient "
+                                     f"relative L2 {e} > 1e-3")
+    print(f"replay kernel, twelve small cases: worst relative L2 {worst:.2e} (bound 1e-3: float atomics add in "
+          f"another order every run, FMA contraction); {time.perf_counter() - t_cases:.1f} s with the plain versions")
+
+    # (c) the full density step: bench.py's density cell, first step
+    med, fog_base, wdas, fog_cam, coords, tpids, rays = density_step(dev)
+    o_w, d_w, pids_k, stream_k = rays
+    n = pids_k.shape[0]
+    ray_args = (med, wdas, None, *rays)
+    L_k, tf_k, ctr_k = mk.record_lanes(*ray_args, K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L_p, tf_p, ctr_p = mk.record_lanes_plain(*ray_args, K)
+    torch.cuda.synchronize()
+    record_plain_ms = (time.perf_counter() - t0) * 1e3
+    agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
+    close = float(agree.float().mean())
+    rel = ((L_k.mean(0) - L_p.mean(0)).abs() / (L_p.mean(0).abs() + 1e-9)).max()
+    record_max_abs = float((L_k - L_p).abs().max())
+    print(f"record kernel, density step ({n} lanes): lane-close {close:.4f} against the plain record, channel rel "
+          f"diff {float(rel):.2e}, max_abs_err {record_max_abs:.3e} (on lanes where rounding flips an event); "
+          f"counters equal to the plain loop's on {float((ctr_k == ctr_p).float().mean()):.4f} of the lanes")
+    check(close > 0.95 and float(rel) < 0.05, f"density step: record kernel lane-close {close}, channel diff {rel}")
+    order = mk.longest_first(ctr_k)
+    g_full = torch.tensor(np.random.default_rng(2).uniform(0.2, 1.0, (n, 3)), dtype=torch.float32, device=dev)
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
+    tables = []
+    _, _, acc, tot = mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k, with_check=True, lane_steps=steps,
+                                     row_tables=tables, order=order)
+    steps_i = torch.zeros(n, dtype=torch.int32, device=dev)
+    _, _, acc_i, _ = mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k, with_check=True, lane_steps=steps_i)
+    torch.cuda.synchronize()
+    bad = ~torch.isclose(acc, tot, rtol=1e-4, atol=1e-5)
+    n_bad = int(bad.sum())
+    worst_lanes = torch.nonzero(bad)[:8, 0].tolist()
+    print(f"accounting invariant, density step ({n} lanes, k_walks {K}, longest group first): replayed <g, L> against "
+          f"<g, L_fwd> at rtol 1e-4, atol 1e-5: {n - n_bad} lanes hold, {n_bad} miss"
+          + (f" (lanes {worst_lanes}: {acc[worst_lanes].tolist()} against {tot[worst_lanes].tolist()})" if n_bad else "")
+          + f"; max |acc - tot| {float((acc - tot).abs().max()):.3e}")
+    check(n_bad == 0, f"the accounting invariant fails on {n_bad} lanes of the density step, e.g. {worst_lanes}")
+    gacc_same = bool(torch.equal(acc, acc_i)) and bool(torch.equal(steps, steps_i))
+    print(f"replay kernel, density step: each lane's replayed <g, L> and steps bitwise equal with the queue order "
+          f"(longest group first) and in index order: {gacc_same}")
+    check(gacc_same, "the queue order changed a lane's replay")
+    g = g_full * agree[:, None]
+    dk = mk.replay_lanes(*ray_args, L_k, g, tf=tf_k, order=order)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp = mk.replay_lanes_plain(*ray_args, L_p, g, tf=tf_p)[0]
+    torch.cuda.synchronize()
+    replay_plain_ms = (time.perf_counter() - t0) * 1e3
+    replay_err = rel_l2(dk, dp)
+    replay_max_abs = float((dk - dp).abs().max())
+    print(f"replay kernel, density step ({int(agree.sum())} of {n} lanes with the cotangent): relative L2 "
+          f"{replay_err:.2e}, max_abs_err {replay_max_abs:.3e} against the plain replay; plain versions: record "
+          f"{record_plain_ms:.1f} ms, replay {replay_plain_ms:.1f} ms")
+    check(replay_err <= 1e-3, f"density step: replay gradient relative L2 {replay_err} > 1e-3")
+
+    # Step 0's lines: device time (CUPTI, kernel_device_ms of 5; the replay with the
+    # order and without, in turns), and from one measuring launch each the
+    # lane-steps, SIMT efficiency as issued, the idle tail and what it read;
+    # resident blocks; registers and spills.
+    occ, docc = mk.occupancy(dev), mk.occupancy(dev, dense=True)
+    with open(mk.build() + ".log") as f:
+        regs = ptxas_report(f.read())
+    record_ms = kernel_device_ms(lambda: mk.record_lanes(*ray_args, K), 5, "trace_lanes_kernel")
+    rec_st, rec_tap = measuring_launch(mk, med, wdas, dev,
+                                       lambda tap, stat: mk.record_lanes(*ray_args, K, row_tap=tap, stat=stat))
+    fwd_steps = int(ctr_k.to(torch.int64).sum())
+    check(rec_st["lane_steps"] == fwd_steps, "the record kernel's step count differs from its counters' sum")
+    turns = {"longest group first": [], "index order": []}
+    for label in ("longest group first", "index order", "index order", "longest group first"):
+        o_arg = order if label == "longest group first" else None
+        turns[label].append(kernel_device_ms(lambda: mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k, order=o_arg),
+                                             5, "replay_lanes_kernel"))
+    rep_st = {}
+    for label, o_arg in (("longest group first", order), ("index order", None)):
+        rep_st[label] = measuring_launch(mk, med, wdas, dev, lambda tap, stat: mk.replay_lanes(
+            *ray_args, L_k, g_full, tf=tf_k, order=o_arg, row_tap=tap, stat=stat))
+    rep_steps = int(steps.to(torch.int64).sum())
+    check(all(st["lane_steps"] == rep_steps for st, _ in rep_st.values()),
+          "the replay kernel's step count differs from its lanes' steps")
+    replay_ms = float(np.mean(turns["longest group first"]))
+    replay_index_ms = float(np.mean(turns["index order"]))
+
+    def regs_of(kernel):
+        r = [regs.get(kernel.format(b), (0, 0, 0)) for b in ("false", "true")]
+        return f"{r[0][0]} / {r[1][0]} registers, spill stores {r[0][1]} / {r[1][1]} B (packed / dense)"
+
+    def stat_words(st):
+        return (f"SIMT efficiency as issued {st['simt_efficiency']:.4f} ({st['warp_steps']} warp-steps on "
+                f"{st['warps']} warps); under half of the warps at work for {st['half_idle_share']:.3f} of the "
+                f"measuring launch ({st['span_ns'] / 1e6:.4f} ms on the device timer)")
+
+    # Bounds, each byte once: the record reads the rays (one origin for all:
+    # 12 B), ids and streams and what its measuring launch marked of the
+    # medium, and writes radiance, counter and residuals; the replay reads
+    # the rays, ids, streams, the order, g, L and the residuals, what it
+    # marked, and writes the distinct corner rows it touched.
+    o_bytes = 12 if o_w.stride(0) == 0 else n * 12
+    rec_rows, rec_words = tap_bytes(med, wdas, None, rec_tap)
+    rec_bytes = o_bytes + n * (12 + 4 + 4 + 12 + 4 + 4 * K) + rec_rows
+    rec_ops = fwd_steps * OPS_PER_LANE_STEP + n * OPS_PER_RAY_SETUP
+    rec_b_ms, rec_o_ms = rec_bytes / HBM_BYTES_PER_S * 1e3, rec_ops / FP32_OPS_PER_S * 1e3
+    rep_rows, rep_words = tap_bytes(med, wdas, None, rep_st["longest group first"][1])
+    rows_written = int((tables[0] != 0).any(1).sum())
+    rep_bytes = o_bytes + n * (12 + 4 + 4 + 4 + 12 + 12 + 4 * K) + rep_rows + rows_written * 32
+    rep_ops = rep_steps * OPS_PER_REPLAY_STEP + n * OPS_PER_RAY_SETUP
+    rep_b_ms, rep_o_ms = rep_bytes / HBM_BYTES_PER_S * 1e3, rep_ops / FP32_OPS_PER_S * 1e3
+    rec_bound, rep_bound = max(rec_b_ms, rec_o_ms), max(rep_b_ms, rep_o_ms)
+    rec_by = "bytes" if rec_b_ms >= rec_o_ms else "operations"
+    rep_by = "bytes" if rep_b_ms >= rep_o_ms else "operations"
+    print(f"record kernel, density step ({n} lanes): {record_ms:.4f} ms (device time, mean of the kept records of 3 windows of 5 launches); plain version "
+          f"{record_plain_ms:.1f} ms; lane-steps {fwd_steps}; {stat_words(rec_st)}; resident blocks "
+          f"{occ.record / occ.sms:.2f} / {docc.record / docc.sms:.2f} per SM of {occ.threads} threads (packed / "
+          f"dense); {regs_of('trace_lanes_kernel<false, {}, true>')}; read {rec_words}; bound {rec_bound:.5f} ms "
+          f"({rec_by}: {rec_bytes} B, {rec_b_ms:.5f} ms; {rec_ops} fp32 ops, {rec_o_ms:.5f} ms) = "
+          f"{rec_bound / record_ms:.4f} of the kernel's time on {card}")
+    for label in ("longest group first", "index order"):
+        st = rep_st[label][0]
+        ms = replay_ms if label == "longest group first" else replay_index_ms
+        print(f"replay kernel, density step ({n} lanes), {label}: {ms:.4f} ms (device time, mean of two turns, each "
+              f"the mean of the kept records of 3 windows of 5: {'/'.join(f'{t:.4f}' for t in turns[label])}); lane-steps {rep_steps} "
+              f"({rep_steps / max(fwd_steps, 1):.3f} of the forward's); {stat_words(st)} on {card}")
+    print(f"replay kernel, density step: plain version {replay_plain_ms:.1f} ms; resident blocks "
+          f"{occ.replay / occ.sms:.2f} / {docc.replay / docc.sms:.2f} per SM (packed / dense); "
+          f"{regs_of('replay_lanes_kernel<false, {}>')}; read {rep_words}; {rows_written} corner rows written; "
+          f"bound {rep_bound:.5f} ms ({rep_by}: {rep_bytes} B, {rep_b_ms:.5f} ms; {rep_ops} fp32 ops, "
+          f"{rep_o_ms:.5f} ms) = {rep_bound / replay_ms:.4f} of the kernel's time (longest group first) on {card}")
+    print("step 0: " + json.dumps({
+        "record": {"ms": record_ms, "lane_steps": fwd_steps, "simt": rec_st["simt_efficiency"],
+                   "half_idle_share": rec_st["half_idle_share"], "blocks_per_sm": occ.record / occ.sms},
+        **{f"replay {label}": {"ms": replay_ms if label == "longest group first" else replay_index_ms,
+                               "lane_steps": rep_steps, "simt": rep_st[label][0]["simt_efficiency"],
+                               "half_idle_share": rep_st[label][0]["half_idle_share"],
+                               "blocks_per_sm": occ.replay / occ.sms} for label in rep_st}}), flush=True)
+    del L_p, tf_p, dp, tables, acc_i, steps_i, rec_tap, rep_st
+
+    # (d) bench.py's three train cells through make_train_step
+    launches, _ = train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids)
     source = "volume_path_tracer_tpu_torch/csrc/trace_lanes.cu"
     return [
         {"name": "record_lanes", "route": "cuda", "source": source,
@@ -742,7 +1000,49 @@ def train_phase(card, dev):
     ]
 
 
-def main():
+def train_compare(repo_dir):
+    """python3 chip_smoke.py --train [DIR]
+
+    The gradient path's numbers for the port in the checkout DIR (default:
+    this one), so that two commits compare on one card: run it for each,
+    in turns (parent, change, change, parent), on one machine. Prints the
+    record and replay kernels' device times on bench.py's density step
+    (CUPTI, kernel_device_ms of 5) and the three train cells (phase 9 (d)), then one
+    JSON line. Works for any commit of the port that has the gradient path.
+    """
+    import torch
+
+    repo_dir = os.path.abspath(repo_dir)
+    check(torch.cuda.is_available(), "CUDA is not available")
+    sys.path.insert(0, repo_dir)
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+
+    check(os.path.dirname(mk.__file__).startswith(repo_dir), f"the port was imported from {mk.__file__}")
+    dev = torch.device("cuda", 0)
+    card = gpu_name_and_limit()
+    print(f"train comparison of {repo_dir} on {card}", flush=True)
+    t0 = time.perf_counter()
+    mk.build()
+    print(f"build_s {time.perf_counter() - t0:.2f}")
+    med, fog_base, wdas, fog_cam, coords, tpids, rays = density_step(dev)
+    import numpy as np
+
+    g = torch.tensor(np.random.default_rng(2).uniform(0.2, 1.0, (rays[2].shape[0], 3)), dtype=torch.float32,
+                     device=dev)
+    rec_ms, rep_ms = grad_kernel_times(mk, med, wdas, rays, g)
+    print(f"density step: record kernel {rec_ms:.4f} ms, replay kernel {rep_ms:.4f} ms (device time, mean of the kept records of 3 windows of 5 launches) "
+          f"on {card}", flush=True)
+    del med
+    _, summary = train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids)
+    print("train_compare: " + json.dumps({"repo": repo_dir, "record_ms": rec_ms, "replay_ms": rep_ms,
+                                          "cells": summary}))
+    record_summary()
+    return 0
+
+
+def main(only_train=False):
+    """The whole run; only_train (--phase 9): phases 1, 2 and 9, printing no
+    kernels line and no result line."""
     import torch
 
     phase("1 device")
@@ -784,10 +1084,18 @@ def main():
         for line in f:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip()[:160])
-    wave_blocks, trace_blocks, threads, num_sms = mk.occupancy(dev)
-    print(f"occupancy: render_wave_kernel {wave_blocks / num_sms:.2f} and trace_lanes_kernel "
-          f"{trace_blocks / num_sms:.2f} resident blocks of {threads} threads per SM on {num_sms} SMs = "
-          f"{wave_blocks * threads // 32} and {trace_blocks * threads // 32} resident warps")
+    for dense in (False, True):
+        occ = mk.occupancy(dev, dense)
+        print(f"occupancy ({'dense' if dense else 'packed'}): resident blocks of {occ.threads} threads per SM on "
+              f"{occ.sms} SMs: render_wave_kernel {occ.wave / occ.sms:.2f}, trace_lanes_kernel "
+              f"{occ.trace / occ.sms:.2f}, its record instantiation {occ.record / occ.sms:.2f}, replay_lanes_kernel "
+              f"{occ.replay / occ.sms:.2f}")
+    if only_train:
+        phase("9 train")
+        train_phase(card, dev)
+        record_summary()
+        print(card)
+        return 0
 
     # ------------------------------------------------------------------
     phase("3 kernels vs plain")
@@ -977,7 +1285,7 @@ def main():
         o_ms = lane_steps * OPS_PER_LANE_STEP / FP32_OPS_PER_S * 1e3
         by = "bytes" if b_ms >= o_ms else "operations"
         print(f"trace_lanes one flagship wave, {what} ({n} lanes): kernel {ms:.4f} ms (device time, "
-              f"mean of 10), wrapper {wrapper:.4f} ms (CUDA events, mean of 10); plain version "
+              f"mean of the kept records of 3 windows of 10 launches), wrapper {wrapper:.4f} ms (CUDA events, mean of 10); plain version "
               f"{plain:.1f} ms; lane-steps {lane_steps} (longest lane {int(si_out[2].max())}); "
               f"read {read_words}; bound {max(b_ms, o_ms):.5f} ms ({by}: {bytes_moved} B = "
               f"{n * state_bytes} B state + {row_bytes} B of the medium, {b_ms:.5f} ms; "
@@ -998,7 +1306,7 @@ def main():
         sweep[ms] = kernel_device_ms(
             lambda: mk.trace_lanes(flag_med, flag.params, None, sf0, si0, pids, streams, ms),
             10, "trace_lanes_kernel")
-    print("trace_lanes device ms against max_steps (flagship wave, mean of 10): "
+    print("trace_lanes device ms against max_steps (flagship wave, mean of the kept records of 3 windows of 10 launches): "
           + ", ".join(f"{k}: {v:.4f}" for k, v in sweep.items()))
 
     # The ray-batch path: render_rays_wave hands a batch's contribution to
@@ -1318,6 +1626,7 @@ def main():
     # ------------------------------------------------------------------
     phase("9 train")
     train_kernels = train_phase(card, dev)
+    record_summary()
     print(card)
     source = "volume_path_tracer_tpu_torch/csrc/trace_lanes.cu"
     replaces = "volume_path_tracer_tpu/render/megakernel.py:617"
@@ -1350,22 +1659,59 @@ def main():
     return 0
 
 
+# A measurement-only variant of the replay's scatter (its gradients are
+# wrong by design; it never runs on the main path): scatter_row's two float4
+# atomics into one row per warp (no scattered addresses). --variants builds
+# it from the source's text.
+SCATTER_LINE = "  float4* p = reinterpret_cast<float4*>(table + (size_t)row * 8);"
+SCATTER_VARIANTS = {
+    "scatter=one_row_per_warp": (SCATTER_LINE, "  float4* p = reinterpret_cast<float4*>(table + (size_t)"
+                                               "((((size_t)blockIdx.x * THREADS + threadIdx.x) >> 5) & 1023) * 8);"),
+}
+# Resident blocks a gradient kernel is compiled for (NAME=N: its
+# __launch_bounds__ patched from MIN_BLOCKS to N; the record's only in its
+# record instantiation, so the forward kernels keep theirs).
+BOUNDS_VARIANTS = {
+    "record_blocks": ("__launch_bounds__(THREADS, MIN_BLOCKS) trace_lanes_kernel",
+                      "__launch_bounds__(THREADS, kRecord ? {n} : MIN_BLOCKS) trace_lanes_kernel"),
+    "replay_blocks": ("__launch_bounds__(THREADS, MIN_BLOCKS) replay_lanes_kernel",
+                      "__launch_bounds__(THREADS, {n}) replay_lanes_kernel"),
+}
+
+
+def candidate_orders(mk, ctr):
+    """Queue orders for the replay to time against each other (None: index
+    order): the record's counters sorted lane by lane, longest first, and
+    groups of g consecutive lanes (neighbouring pixels of one sample wave,
+    coherent rays) sorted by their longest lane (mk.longest_first)."""
+    out = {"index order": None, "longest first": mk.longest_first(ctr, group=1)}
+    for g in (128, 256, 512, 1024, 2048):
+        out[f"groups of {g}"] = mk.longest_first(ctr, group=g)
+    return out
+
+
 def variants(specs):
     """python3 chip_smoke.py --variants SPEC [SPEC ...]
 
-    Times variants of the kernel source against csrc/trace_lanes.cu on the
-    flagship wave, in turns within one process (source, variants, variants
-    reversed, source), so that two versions are compared on one card. SPEC
-    is the path of a .cu file with the same C interface, or
-    NAME=VALUE[,NAME=VALUE...] for a copy of the source with those
-    `constexpr int NAME = ...;` lines changed. Prints, for each turn: the
-    registers, render_wave_kernel's device ms on the wave, SIMT efficiency as
+    Times variants of the kernel source against csrc/trace_lanes.cu in turns
+    within one process (source, variants, variants reversed, source), so that
+    two versions are compared on one card. SPEC is the path of a .cu file
+    with the same forward C interface, NAME=VALUE[,NAME=VALUE...] for a copy
+    of the source with those `constexpr int NAME = ...;` lines changed (or,
+    for a NAME of BOUNDS_VARIANTS, that kernel's __launch_bounds__), or
+    one of SCATTER_VARIANTS. Prints, for each turn: the registers,
+    render_wave_kernel's device ms on the flagship wave, SIMT efficiency as
     issued, the idle tail, the same for one wave at 1920x1080 (where every
     warp refills many times), trace_lanes_kernel's ms at max_steps 16, 64 and
-    309, and how the film compares with the source's.
+    309, and how the film compares with the source's; for a source with this
+    checkout's record / replay interface also the record and replay
+    kernels' ms on bench.py's density step (the replay longest first and in
+    index order), their SIMT efficiency and idle tail, and each lane's
+    replayed <g, L> and the gradient against the source's.
     """
     import re
 
+    import numpy as np
     import torch
 
     sys.path.insert(0, REPO)
@@ -1379,7 +1725,8 @@ def variants(specs):
 
     check(torch.cuda.is_available(), "CUDA is not available")
     dev = torch.device("cuda", 0)
-    print(gpu_name_and_limit())
+    card = gpu_name_and_limit()
+    print(card)
     original = mk.SOURCE
     with open(original) as f:
         text = f.read()
@@ -1391,10 +1738,20 @@ def variants(specs):
             sources.append((os.path.basename(spec), os.path.abspath(spec)))
             continue
         changed = text
-        for item in spec.split(","):
-            name, value = item.split("=")
-            changed, n_sub = re.subn(rf"(constexpr int {name} = )\w+;", rf"\g<1>{int(value)};", changed)
-            check(n_sub == 1, f"no `constexpr int {name} = ...;` in {original}")
+        if spec in SCATTER_VARIANTS:
+            old, new = SCATTER_VARIANTS[spec]
+            check(changed.count(old) == 1, f"{spec}: the scatter's lines are not in {original}")
+            changed = changed.replace(old, new)
+        else:
+            for item in spec.split(","):
+                name, value = item.split("=")
+                if name in BOUNDS_VARIANTS:
+                    old, new = BOUNDS_VARIANTS[name]
+                    check(changed.count(old) == 1, f"{spec}: `{old}` is not in {original}")
+                    changed = changed.replace(old, new.format(n=int(value)))
+                    continue
+                changed, n_sub = re.subn(rf"(constexpr int {name} = )\w+;", rf"\g<1>{int(value)};", changed)
+                check(n_sub == 1, f"no `constexpr int {name} = ...;` in {original}")
         path = os.path.join(var_dir, spec.replace("=", "_").replace(",", "__") + ".cu")
         with open(path, "w") as f:
             f.write(changed)
@@ -1415,12 +1772,25 @@ def variants(specs):
     hd_kw = wave_args(hd, 1)
     hd_film = torch.zeros((hd.height, hd.width, 4), dtype=torch.float32, device=dev)
     hd_n = hd.width * hd.height
-    reference = None
+    # the density step, for sources with this checkout's gradient interface
+    med, fog_base, wdas, _, _, _, rays = density_step(dev)
+    from volume_path_tracer_tpu_torch.diff import inverse as inv
+
+    dense_med = inv.medium_with_params(fog_base, inv.OptimizableGrids(inv.param_from_density(
+        fog_base.density.data)), pack=False)
+    n_step = rays[2].shape[0]
+    g_step = torch.tensor(np.random.default_rng(2).uniform(0.2, 1.0, (n_step, 3)), dtype=torch.float32, device=dev)
+    step_args = (med, wdas, None, *rays)
+    reference = grad_reference = None
     for name, path in sources + sources[::-1]:
         mk.SOURCE, mk._lib = path, None
         lib_path = mk.build()
         with open(lib_path + ".log") as f:
-            regs = re.findall(r"Used (\d+) registers", f.read())
+            report = ptxas_report(f.read())
+        regs = [str(r[0]) for r in report.values()]
+        spills = sum(r[1] + r[2] for r in report.values())
+        with open(path) as f:
+            grad = "const float* o_world" in f.read()
         film = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
         mk.render_wave(film=film, pixels=range(0, n), **kw)
         if reference is None:
@@ -1441,17 +1811,55 @@ def variants(specs):
         stat.zero_()
         mk.render_wave(film=hd_film, pixels=range(0, hd_n), row_tap=tap, stat=stat, **hd_kw)
         hd_st = mk.read_launch_stat(stat)
-        print(f"variant {name}: registers {'/'.join(regs)}; render_wave {ms:.4f} ms; SIMT efficiency "
-              f"{st['simt_efficiency']:.4f} on {st['warps']} warps; under half of the warps at work for "
-              f"{st['half_idle_share']:.3f}; at 1920x1080 {hd_ms:.4f} ms, SIMT efficiency "
-              f"{hd_st['simt_efficiency']:.4f}, under half at work for {hd_st['half_idle_share']:.3f}; "
-              f"trace_lanes ms at max_steps 16/64/309: "
-              + "/".join(f"{v:.4f}" for v in sweep)
-              + f"; film bitwise equal to the source's {bool(torch.equal(film, reference))}, pixels close {close:.4f}",
-              flush=True)
+        line = (f"variant {name}: registers {'/'.join(regs)}, spill bytes {spills}; render_wave {ms:.4f} ms; "
+                f"SIMT efficiency "
+                f"{st['simt_efficiency']:.4f} on {st['warps']} warps; under half of the warps at work for "
+                f"{st['half_idle_share']:.3f}; at 1920x1080 {hd_ms:.4f} ms, SIMT efficiency "
+                f"{hd_st['simt_efficiency']:.4f}, under half at work for {hd_st['half_idle_share']:.3f}; "
+                f"trace_lanes ms at max_steps 16/64/309: "
+                + "/".join(f"{v:.4f}" for v in sweep)
+                + f"; film bitwise equal to the source's {bool(torch.equal(film, reference))}, pixels close {close:.4f}")
+        if grad:
+            L, tf, ctr = mk.record_lanes(*step_args, 16)
+            order = mk.longest_first(ctr)
+            _, _, acc, _ = mk.replay_lanes(*step_args, L, g_step, tf=tf, order=order, with_check=True)
+            dd = mk.replay_lanes(*step_args, L, g_step, tf=tf, order=order)[0]
+            if grad_reference is None:
+                grad_reference = (acc, dd)
+            rec_ms = kernel_device_ms(lambda: mk.record_lanes(*step_args, 16), 5, "trace_lanes_kernel")
+            rst, _ = measuring_launch(mk, med, wdas, dev, lambda tap, stat: mk.record_lanes(
+                *step_args, 16, row_tap=tap, stat=stat))
+            parts = [f"SIMT efficiency {rst['simt_efficiency']:.4f}, under half at work for "
+                     f"{rst['half_idle_share']:.3f}"]
+            for label, o_arg in candidate_orders(mk, ctr).items():
+                rep_ms = kernel_device_ms(lambda: mk.replay_lanes(*step_args, L, g_step, tf=tf, order=o_arg), 5,
+                                          "replay_lanes_kernel")
+                rst, _ = measuring_launch(mk, med, wdas, dev, lambda tap, stat: mk.replay_lanes(
+                    *step_args, L, g_step, tf=tf, order=o_arg, row_tap=tap, stat=stat))
+                parts.append(f"replay {label} {rep_ms:.4f} ms, SIMT efficiency {rst['simt_efficiency']:.4f}, "
+                             f"under half at work for {rst['half_idle_share']:.3f}")
+            line += (f"; density step: record {rec_ms:.4f} ms, " + ", ".join(parts)
+                     + f"; replayed <g, L> bitwise equal to the source's {bool(torch.equal(acc, grad_reference[0]))}, "
+                     f"gradient relative L2 against the source's {rel_l2(dd, grad_reference[1]):.2e}")
+            # the same step on the medium unpacked: the dense instantiations
+            dargs = (dense_med, wdas, None, *rays)
+            dL, dtf, dctr = mk.record_lanes(*dargs, 16)
+            drec_ms = kernel_device_ms(lambda: mk.record_lanes(*dargs, 16), 5, "trace_lanes_kernel")
+            dparts = []
+            for label, o_arg in candidate_orders(mk, dctr).items():
+                if label in ("index order", "longest first", "groups of 256", "groups of 1024"):
+                    dparts.append(f"replay {label} " + "%.4f ms" % kernel_device_ms(
+                        lambda: mk.replay_lanes(*dargs, dL, g_step, tf=dtf, order=o_arg), 5, "replay_lanes_kernel"))
+            line += f"; unpacked: record {drec_ms:.4f} ms, " + ", ".join(dparts)
+        print(line + f" on {card}", flush=True)
     mk.SOURCE, mk._lib = original, None
+    record_summary()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(variants(sys.argv[2:]) if sys.argv[1:2] == ["--variants"] else main())
+    if sys.argv[1:2] == ["--variants"]:
+        sys.exit(variants(sys.argv[2:]))
+    if sys.argv[1:2] == ["--train"]:
+        sys.exit(train_compare(sys.argv[2] if len(sys.argv) > 2 else REPO))
+    sys.exit(main(only_train=sys.argv[1:] == ["--phase", "9"]))

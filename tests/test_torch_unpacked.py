@@ -308,8 +308,10 @@ def test_kernel_source_has_the_dense_instantiations():
     assert "template <bool kTap, bool kDense>" in source
     assert "render_wave_kernel<true, kDense>" in source and "render_wave_kernel<false, kDense>" in source
     assert "trace_lanes_kernel<true, kDense, false>" in source and "trace_lanes_kernel<false, kDense, false>" in source
-    # the record and replay kernels of the gradient path have theirs too
-    assert "trace_lanes_kernel<false, kDense, true>" in source and "replay_lanes_kernel<kDense>" in source
+    # the record and replay kernels of the gradient path have theirs too,
+    # each with its measuring twin
+    assert "trace_lanes_kernel<false, kDense, true>" in source and "trace_lanes_kernel<true, kDense, true>" in source
+    assert "replay_lanes_kernel<false, kDense>" in source and "replay_lanes_kernel<true, kDense>" in source
     # the dense arm is chosen at compile time, not by a branch in the step
     assert "if constexpr (kDense)" in source and "dense_trilinear<kTap>(a.dens" in source
     assert "dense_trilinear<kTap>(a.tdata" in source

@@ -42,15 +42,23 @@
 //   trace_lanes_kernel  state in, state out (SoA sf/si), for arbitrary ray
 //                       batches and for max_steps = 1, the one-step check.
 //                       Its kRecord instantiation is the forward of the
-//                       gradient path (diff/prb.py _trace_rays_record): the
-//                       same lane_step, and at each shadow walk's end the
-//                       walk's residual written into tf [n, K].
+//                       gradient path (diff/prb.py _trace_rays_record): a
+//                       lane is born from its world ray (init_lane, as a
+//                       camera lane is), runs the same lane_step, writes at
+//                       each shadow walk's end the walk's residual into tf
+//                       [n, K], and ends as its radiance, its last counter
+//                       and zeros in the slots it never filled: no state
+//                       crosses device memory.
 //   replay_lanes_kernel the gradient path's backward, the counterpart of the
 //                       JAX package's XLA loop diff/prb.py replay_grads /
 //                       _make_replay_step (there is no Pallas kernel for it):
-//                       one thread replays one lane's path from its draw
-//                       counters and adds each event's derivative into
-//                       corner-row tables with two 16-byte float atomics.
+//                       one thread replays one lane's path from its world
+//                       ray and its draw counters and adds each event's
+//                       derivative into corner-row tables with two 16-byte
+//                       float atomics. Lanes are taken in the order the
+//                       wrapper gives: groups of neighbouring lanes, the
+//                       group with the longest lane (by the record's
+//                       counters) first, so long lanes do not start last.
 //
 // Path replay is right only if the replay takes the forward's branches on
 // the forward's draws, lane by lane. Both steps therefore call one inlined
@@ -59,7 +67,8 @@
 // record kernel runs lane_step itself, so its radiance is trace_lanes's bit
 // for bit. The replay is bound as the forward is (the chain's latency, the
 // longest lane), not by its atomics: a collision adds one 32-byte row, and
-// lanes of a warp hit scattered rows. Atomics add in another order on
+// sending every add of a warp to one row instead of the scattered rows saves
+// under 2% of its time (PERF.md, Findings). Atomics add in another order on
 // every run, so its gradients equal the plain replay's to rounding only.
 //
 // What bounds it on this card, as measured (PERF.md, Findings): not bytes
@@ -89,7 +98,14 @@
 // thread leaves the loop before the whole warp does, so every *_sync names
 // the full mask. Draws are keyed on (pixel id, stream, lane counter): a
 // lane takes the same path whichever thread carries it, and refill order
-// shows in no result. The scene's constants ride in the kernel's arguments
+// shows in no result. The record has just counted how long each lane is, so
+// the replay's queue starts the groups of neighbouring lanes that hold the
+// longest lanes first. It keeps the groups whole: neighbouring lanes are
+// neighbouring pixels whose rays read neighbouring rows, and a warp of them
+// gathers and adds coherently; sorting the lanes themselves put lanes of a
+// like length in each warp (SIMT efficiency 0.39 -> 0.89) but scattered every
+// warp over the image and made the replay 1.45x slower (PERF.md, Findings).
+// The scene's constants ride in the kernel's arguments
 // (the constant bank): no registers and no loads for them. The chain is cut where that changes no
 // result, or the same last bits in the plain step: the reciprocal of the
 // direction is carried with the lane and recomputed only when the
@@ -113,7 +129,12 @@ constexpr int RPRE = 1;
 constexpr int RGRAD = 2;
 constexpr int RDONE = 3;
 constexpr int THREADS = 128;
-constexpr int MIN_BLOCKS = 4;  // __launch_bounds__: at most 128 registers a thread
+// __launch_bounds__ of all three kernels: at most 128 registers a thread.
+// Measured on the gradient kernels (chip_smoke.py --variants replay_blocks=5
+// record_blocks=6): 5 blocks take the dense replay from 102 to 96 registers
+// with 40 B of spills, and are slower; 6 take the record from 85 to 80
+// registers and 6 blocks an SM, and are no faster.
+constexpr int MIN_BLOCKS = 4;
 // Idle threads a warp waits for before it takes new lanes from the queue.
 constexpr int REFILL_MIN = 8;
 // A launch starts at most n / QUEUE_PER_THREAD threads (and at most what the
@@ -186,13 +207,22 @@ struct Args {
   // and last %globaltimer reading.
   unsigned char* tap;
   unsigned long long* stat;
-  // The record kernel: tf [n, k_walks] walk residuals and wc [n] walks
-  // started, both state in and out. The replay kernel: tf read, the
+  // The record and replay kernels: world rays o_world (row stride o_stride
+  // floats: 3, or 0 for one origin shared by every ray) and d_world [n, 3];
+  // order [n] or null: the queue's lane order (replay: megakernel.py
+  // longest_first). The record kernel
+  // writes tf [n, k_walks] walk residuals (every slot), L_out [n, 3] and
+  // ctr_out [n], each lane's last counter. The replay kernel: tf read, the
   // cotangent g [n, 3] and the forward radiance Lf [n, 3], the corner-row
   // gradient tables gd [(X+1)(Y+1)(Z+1), 8] and gt (temperature, or null),
   // and, or null, gacc [n] (<g, L> replayed) and nsteps [n] (steps taken).
+  const float* o_world;
+  const float* d_world;
+  int o_stride;
+  const int* order;
+  float* L_out;
+  int* ctr_out;
   float* tf;
-  int* wc;
   int k_walks, max_iters;
   const float* g;
   const float* Lf;
@@ -729,8 +759,9 @@ __device__ __forceinline__ void scatter_row(float* table, int row, const float* 
 // _make_replay_step): the forward's tracking event by traverse(), then the
 // camera collision's emission and score-function weights, the PRE / GRAD
 // shadow walks, the recorded residual at a shadow start, resume / retire,
-// and the gradient scatter into the corner-row tables a.gd and a.gt.
-template <bool kDense>
+// and the gradient scatter into the corner-row tables a.gd and a.gt. kTap:
+// as in traverse.
+template <bool kTap, bool kDense>
 __device__ __forceinline__ void replay_step(Lane& L, int q, const Args& a) {
   const float* fp = a.p.f;
   const int* ip = a.p.i;
@@ -751,7 +782,7 @@ __device__ __forceinline__ void replay_step(Lane& L, int q, const Args& a) {
   const float gLinf = L.gx * fp[P_LINF] + L.gy * fp[P_LINF + 1] + L.gz * fp[P_LINF + 2];
 
   Trav tr;
-  traverse<false, kDense>(L, a, tr);
+  traverse<kTap, kDense>(L, a, tr);
   const float rho = tr.rho, rsig = tr.rsig;
   const float pcx = tr.pcx, pcy = tr.pcy, pcz = tr.pcz;
 
@@ -763,7 +794,7 @@ __device__ __forceinline__ void replay_step(Lane& L, int q, const Args& a) {
   float demis = 0.f, tw = 0.f;
   float tlx = 0.f, tly = 0.f, tlz = 0.f;
   if (emission != 0 && cam_col) {
-    const float temp_adim = sample_temperature<false, kDense>(a, tr, tlx, tly, tlz);
+    const float temp_adim = sample_temperature<kTap, kDense>(a, tr, tlx, tly, tlz);
     if (!kDense && emission == 1) temperature_local(fp, pcx, pcy, pcz, tlx, tly, tlz);
     const float temp_k = temp_adim * fp[P_T_SCALE] + fp[P_T_OFFSET];
     float bb[3], slope[3];
@@ -917,30 +948,24 @@ __device__ __forceinline__ void replay_step(Lane& L, int q, const Args& a) {
   }
 }
 
-// A new lane from its pixel id alone: the jitter draw (renderer.py
-// render_rays_wave), the camera ray (models/camera.py generate_rays), and
-// integrator.init_state (world -> index, box clip; a ray that misses the box
-// is DONE with L = L_inf).
-__device__ __forceinline__ void camera_lane(Lane& L, uint32_t pid, const Args& a) {
+// integrator.init_state for one world ray: world -> index (grids/grid.py
+// world_to_index: the offset subtracted, then a true division by the voxel
+// size), the direction's reciprocals, the box clip from t_min 1e-4
+// (integrator.clip_ray); a ray that misses the box is DONE with L = L_inf.
+// Camera, record and replay lanes are all born here, so the replay starts
+// each lane where the record started it. No product meets a sum here, so no
+// multiply-add is contracted and the lane is torch's init_state bit for bit
+// wherever torch divides (its CUDA division by a host scalar multiplies by
+// the reciprocal instead, which is the same for a voxel size that is a
+// power of two; chip_smoke.py phase 9 (a) measures a voxel size of 0.1).
+__device__ __forceinline__ void init_lane(Lane& L, float owx, float owy, float owz,
+                                          float dx, float dy, float dz, const Args& a) {
   const float* fp = a.p.f;
-  L.pid = pid;
-  L.strm = a.stream;
-  uint32_t r0 = pid, r1 = a.stream, r2 = JITTER_CTR, r3 = 0u;
-  pcg4d(r0, r1, r2, r3);
-  const float jx = u32_to_uniform(r0) * fp[P_JITTER], jy = u32_to_uniform(r1) * fp[P_JITTER];
-  const uint32_t width = (uint32_t)a.p.i[I_WIDTH];
-  const uint32_t py = pid / width, px = pid - py * width;
-  const float ptx = ((float)px + 0.5f) + jx, pty = ((float)py + 0.5f) + jy;
-  const float dx = ptx * fp[P_CAM_MX] + pty * fp[P_CAM_MY] + fp[P_CAM_T];
-  const float dy = ptx * fp[P_CAM_MX + 1] + pty * fp[P_CAM_MY + 1] + fp[P_CAM_T + 1];
-  const float dz = ptx * fp[P_CAM_MX + 2] + pty * fp[P_CAM_MY + 2] + fp[P_CAM_T + 2];
-  const float nrm = sqrtf(dx * dx + dy * dy + dz * dz);
-  set_direction(L, dx / nrm, dy / nrm, dz / nrm);
-  // grids/grid.py world_to_index
+  set_direction(L, dx, dy, dz);
   const float voxel = fp[P_VOXEL];
-  L.ox = (fp[P_CAM_POS] - fp[P_DOFF]) / voxel;
-  L.oy = (fp[P_CAM_POS + 1] - fp[P_DOFF + 1]) / voxel;
-  L.oz = (fp[P_CAM_POS + 2] - fp[P_DOFF + 2]) / voxel;
+  L.ox = (owx - fp[P_DOFF]) / voxel;
+  L.oy = (owy - fp[P_DOFF + 1]) / voxel;
+  L.oz = (owz - fp[P_DOFF + 2]) / voxel;
   const float Ox = fp[P_ORIGIN], Oy = fp[P_ORIGIN + 1], Oz = fp[P_ORIGIN + 2];
   const float lo[3] = {Ox, Oy, Oz};
   const float hi[3] = {Ox + (float)a.p.i[I_X], Oy + (float)a.p.i[I_Y], Oz + (float)a.p.i[I_Z]};
@@ -961,6 +986,49 @@ __device__ __forceinline__ void camera_lane(Lane& L, uint32_t pid, const Args& a
   L.depth = 0;
   L.mode = hit ? CAM : DONE;
   L.ctr = 0;
+}
+
+// A new lane from its pixel id alone: the jitter draw (renderer.py
+// render_rays_wave), the camera ray (models/camera.py generate_rays), then
+// init_lane.
+__device__ __forceinline__ void camera_lane(Lane& L, uint32_t pid, const Args& a) {
+  const float* fp = a.p.f;
+  L.pid = pid;
+  L.strm = a.stream;
+  uint32_t r0 = pid, r1 = a.stream, r2 = JITTER_CTR, r3 = 0u;
+  pcg4d(r0, r1, r2, r3);
+  const float jx = u32_to_uniform(r0) * fp[P_JITTER], jy = u32_to_uniform(r1) * fp[P_JITTER];
+  const uint32_t width = (uint32_t)a.p.i[I_WIDTH];
+  const uint32_t py = pid / width, px = pid - py * width;
+  const float ptx = ((float)px + 0.5f) + jx, pty = ((float)py + 0.5f) + jy;
+  const float dx = ptx * fp[P_CAM_MX] + pty * fp[P_CAM_MY] + fp[P_CAM_T];
+  const float dy = ptx * fp[P_CAM_MX + 1] + pty * fp[P_CAM_MY + 1] + fp[P_CAM_T + 1];
+  const float dz = ptx * fp[P_CAM_MX + 2] + pty * fp[P_CAM_MY + 2] + fp[P_CAM_T + 2];
+  const float nrm = sqrtf(dx * dx + dy * dy + dz * dz);
+  init_lane(L, fp[P_CAM_POS], fp[P_CAM_POS + 1], fp[P_CAM_POS + 2], dx / nrm, dy / nrm, dz / nrm, a);
+}
+
+// A record or replay lane from queue entry q: its world ray, pixel id and
+// stream, no walk started.
+__device__ __forceinline__ void ray_lane(Lane& L, int q, const Args& a) {
+  const float* o = a.o_world + (size_t)q * a.o_stride;
+  const float* d = a.d_world + 3 * (size_t)q;
+  init_lane(L, __ldg(o), __ldg(o + 1), __ldg(o + 2), __ldg(d), __ldg(d + 1), __ldg(d + 2), a);
+  L.pid = (uint32_t)a.pids[q];
+  L.strm = (uint32_t)a.streams[q];
+  L.wc = 0;
+}
+
+// The record kernel's end of a lane: its radiance, its last counter (the
+// replay's queue order), and zero in every residual slot it did not fill (a
+// walk still in flight at the cap fills none), so the caller need not zero tf.
+__device__ __forceinline__ void finish_record(const Lane& L, int q, const Args& a) {
+  a.L_out[3 * (size_t)q] = L.Lx;
+  a.L_out[3 * (size_t)q + 1] = L.Ly;
+  a.L_out[3 * (size_t)q + 2] = L.Lz;
+  a.ctr_out[q] = L.ctr;
+  const int ended = L.wc - (L.mode == SHADOW ? 1 : 0);
+  for (int s = ended; s < a.k_walks; ++s) a.tf[(size_t)q * a.k_walks + s] = 0.f;
 }
 
 // film[pid] += (imaging_ratio * L, 1). A pixel id occurs once in a launch,
@@ -1008,19 +1076,19 @@ __device__ __forceinline__ void store_lane(const Lane& L, int q, const Args& a) 
   si[0 * n + q] = L.depth; si[1 * n + q] = L.mode; si[2 * n + q] = L.ctr;
 }
 
-// A replay lane from the forward's initial state (sf, si: init_state, read
-// only) and its cotangent (diff/prb.py _replay_init): a lane whose ray
-// misses the box is RDONE with <g, L_inf> accumulated.
+// A replay lane from its world ray, as the record kernel started it, and its
+// cotangent (diff/prb.py _replay_init): a lane whose ray misses the box is
+// RDONE with <g, L_inf> accumulated.
 __device__ __forceinline__ void replay_lane(Lane& L, int q, const Args& a) {
   const float* fp = a.p.f;
-  load_lane(L, q, a);
+  ray_lane(L, q, a);
   L.gx = a.g[3 * (size_t)q]; L.gy = a.g[3 * (size_t)q + 1]; L.gz = a.g[3 * (size_t)q + 2];
   L.gL_tot = L.gx * a.Lf[3 * (size_t)q] + L.gy * a.Lf[3 * (size_t)q + 1] + L.gz * a.Lf[3 * (size_t)q + 2];
   const bool hit = L.mode == CAM;
   L.mode = hit ? RCAM : RDONE;
   L.gL_acc = hit ? 0.f : L.gx * fp[P_LINF] + L.gy * fp[P_LINF + 1] + L.gz * fp[P_LINF + 2];
   L.T_fin = 0.f; L.sh_t0 = 0.f; L.sh_t1 = 0.f;
-  L.sh_ctr0 = 0; L.wc = 0; L.nsteps = 0;
+  L.sh_ctr0 = 0; L.nsteps = 0;
 }
 
 __device__ __forceinline__ void finish_replay(const Lane& L, int q, const Args& a) {
@@ -1040,8 +1108,8 @@ __device__ __forceinline__ unsigned long long global_timer() {
 enum Kind {
   kWaveKind,    // render_wave_kernel: born from pixel ids, ends in the film
   kTraceKind,   // trace_lanes_kernel: SoA state in, state out
-  kRecordKind,  // trace_lanes_kernel<., ., true>: the same, recording NEE walks
-  kReplayKind,  // replay_lanes_kernel: the backward replay
+  kRecordKind,  // trace_lanes_kernel<., ., true>: born from world rays, recording NEE walks
+  kReplayKind,  // replay_lanes_kernel: the backward replay, born from world rays
 };
 
 // The warp loop of every kernel. A lane runs until it is done or has taken
@@ -1072,24 +1140,26 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
       drained = base >= a.n - n_idle;
       const int mine = base + __popc(idle_mask & below);
       if (idle && mine < a.n) {
-        q = mine;
+        q = (!kWave && a.order != nullptr) ? a.order[mine] : mine;
         steps_left = a.max_steps;
         if constexpr (kWave) {
           camera_lane(L, (uint32_t)(a.pids != nullptr ? a.pids[q] : a.start + q), a);
         } else if constexpr (kKind == kReplayKind) {
           replay_lane(L, q, a);
+        } else if constexpr (kKind == kRecordKind) {
+          ray_lane(L, q, a);
         } else {
           load_lane(L, q, a);
-          if constexpr (kKind == kRecordKind) L.wc = a.wc[q];
         }
         idle = L.mode == kDoneMode || steps_left <= 0;
         // A lane that is DONE at birth (its ray misses the box) still owes
-        // the film its sample; a loaded state that takes no step is left
-        // as it is.
+        // its result (the film's sample, the record's outputs); a loaded
+        // state that takes no step is left as it is.
         if (kWave && idle) {
           add_to_film(L, a);
           capped += L.mode != DONE;
         }
+        if (kKind == kRecordKind && idle) finish_record(L, q, a);
         if (kKind == kReplayKind && idle) finish_replay(L, q, a);
       }
     }
@@ -1101,7 +1171,7 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
     // ---- one step of every lane the warp carries ----
     if (!idle) {
       if constexpr (kKind == kReplayKind) {
-        replay_step<kDense>(L, q, a);
+        replay_step<kTap, kDense>(L, q, a);
       } else if constexpr (kKind == kRecordKind) {
         const int mode0 = L.mode;
         lane_step<kTap, kDense>(L, a);
@@ -1119,9 +1189,10 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
           max_ctr = max(max_ctr, L.ctr);
         } else if constexpr (kKind == kReplayKind) {
           finish_replay(L, q, a);
+        } else if constexpr (kKind == kRecordKind) {
+          finish_record(L, q, a);
         } else {
           store_lane(L, q, a);
-          if constexpr (kKind == kRecordKind) a.wc[q] = L.wc;
         }
         idle = true;
       }
@@ -1161,9 +1232,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) trace_lanes_kernel(const 
   warp_loop<kRecord ? kRecordKind : kTraceKind, kTap, kDense>(a);
 }
 
-template <bool kDense>
+template <bool kTap, bool kDense>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) replay_lanes_kernel(const Args a) {
-  warp_loop<kReplayKind, false, kDense>(a);
+  warp_loop<kReplayKind, kTap, kDense>(a);
 }
 
 using Kernel = void (*)(const Args);
@@ -1173,8 +1244,8 @@ Kernel pick_kernel(int kind, bool tap) {
   switch (kind) {
     case kWaveKind: return tap ? render_wave_kernel<true, kDense> : render_wave_kernel<false, kDense>;
     case kTraceKind: return tap ? trace_lanes_kernel<true, kDense, false> : trace_lanes_kernel<false, kDense, false>;
-    case kRecordKind: return trace_lanes_kernel<false, kDense, true>;
-    default: return replay_lanes_kernel<kDense>;
+    case kRecordKind: return tap ? trace_lanes_kernel<true, kDense, true> : trace_lanes_kernel<false, kDense, true>;
+    default: return tap ? replay_lanes_kernel<true, kDense> : replay_lanes_kernel<false, kDense>;
   }
 }
 
@@ -1240,7 +1311,7 @@ extern "C" {
 int vpt_num_fparams() { return NUM_FPARAMS; }
 int vpt_num_iparams() { return NUM_IPARAMS; }
 
-// The two launches below run on `stream`, do not synchronise, and return a
+// The four launches below run on `stream`, do not synchronise, and return a
 // cudaError_t (0 on success). fp / ip are HOST arrays in the FParam / IParam
 // layout; they travel in the kernel's arguments. rows: [n_rows, row_w]
 // float32 (row_w 8 or 16), trows: [n_trows, 8] or null, bb_pairs:
@@ -1288,60 +1359,78 @@ int vpt_render_wave(int device, void* stream, float* film, const int* pids, int 
   return launch(kWaveKind, device, stream, a);
 }
 
-// The record instantiation of trace_lanes_kernel: vpt_trace_lanes's
-// contract, and each lane's NEE walks recorded into tf [n, k_walks] (zeroed
-// by the caller before a lane's first launch) with wc [n] the walks started,
-// both in place (diff/prb.py _trace_rays_record's encoding).
-int vpt_record_lanes(int device, void* stream, float* sf, int* si, int* wc, float* tf, int k_walks,
+// The record instantiation of trace_lanes_kernel, the forward of the
+// gradient path (diff/prb.py _trace_rays_record): each of n world rays
+// (o_world with row stride o_stride floats, 3 or 0; d_world [n, 3]; pids /
+// streams [n] int32, uint32 bits) is born in the kernel as init_state makes
+// it and runs until DONE or max_steps steps. Writes L_out [n, 3] (the
+// radiance), ctr_out [n] (each lane's last counter) and tf [n, k_walks] (the
+// walk residuals in _trace_rays_record's encoding, 0 in every slot a lane
+// did not fill).
+int vpt_record_lanes(int device, void* stream, const float* o_world, int o_stride, const float* d_world,
                      const int* pids, const int* streams, int n, int max_steps,
+                     float* L_out, int* ctr_out, float* tf, int k_walks,
                      const float* rows, int n_rows, int row_w,
                      const float* trows, int n_trows, const float* bb_pairs,
                      const float* dens, int n_dens, const float* maj, int n_maj,
                      const float* tdata, int n_tdata,
-                     const float* fp, const int* ip, int* scratch) {
+                     const float* fp, const int* ip, int* scratch,
+                     unsigned char* tap, unsigned long long* stat) {
   Args a{};
-  a.sf = sf; a.si = si; a.pids = pids; a.streams = streams;
-  a.n = n; a.max_steps = max_steps; a.wc = wc; a.tf = tf; a.k_walks = k_walks;
+  a.o_world = o_world; a.o_stride = o_stride; a.d_world = d_world; a.pids = pids; a.streams = streams;
+  a.n = n; a.max_steps = max_steps; a.L_out = L_out; a.ctr_out = ctr_out; a.tf = tf; a.k_walks = k_walks;
   set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
-             fp, ip, scratch, nullptr, nullptr);
+             fp, ip, scratch, tap, stat);
   return launch(kRecordKind, device, stream, a);
 }
 
-// The backward replay of n lanes (diff/prb.py replay_grads): sf / si the
-// forward's initial state (init_state, read only), tf [n, k_walks] its
-// recorded residuals (k_walks 0: none, PRE+GRAD for every walk), g [n, 3]
-// the cotangent, Lf [n, 3] the forward radiance; a lane retires at counter
-// max_iters (truncation parity) or after max_steps steps. Adds into the
-// corner-row tables gd and gt (gt null without emission) with float
-// atomics; gacc / nsteps [n], or null, get each lane's replayed <g, L> and
-// its steps.
-int vpt_replay_lanes(int device, void* stream, float* sf, int* si, const float* tf, int k_walks,
-                     const int* pids, const int* streams, int n, int max_steps, int max_iters,
+// The backward replay of n lanes (diff/prb.py replay_grads): the record's
+// world rays, pids and streams (as vpt_record_lanes), taken in the queue
+// order `order` [n] (a permutation of 0..n-1; null: index order), tf [n,
+// k_walks] the recorded residuals (k_walks 0: none, PRE+GRAD for every
+// walk), g [n, 3] the cotangent, Lf [n, 3] the forward radiance; a lane
+// retires at counter max_iters (truncation parity) or after max_steps steps.
+// Adds into the corner-row tables gd and gt (gt null without emission) with
+// float atomics; gacc / nsteps [n], or null, get each lane's replayed <g, L>
+// and its steps.
+int vpt_replay_lanes(int device, void* stream, const float* o_world, int o_stride, const float* d_world,
+                     const int* pids, const int* streams, const int* order, int n, int max_steps,
+                     int max_iters, const float* tf, int k_walks,
                      const float* g, const float* Lf, float* gd, float* gt, float* gacc, int* nsteps,
                      const float* rows, int n_rows, int row_w,
                      const float* trows, int n_trows, const float* bb_pairs,
                      const float* dens, int n_dens, const float* maj, int n_maj,
                      const float* tdata, int n_tdata,
-                     const float* fp, const int* ip, int* scratch) {
+                     const float* fp, const int* ip, int* scratch,
+                     unsigned char* tap, unsigned long long* stat) {
   Args a{};
-  a.sf = sf; a.si = si; a.pids = pids; a.streams = streams;
+  a.o_world = o_world; a.o_stride = o_stride; a.d_world = d_world; a.pids = pids; a.streams = streams;
+  a.order = order;
   a.n = n; a.max_steps = max_steps; a.max_iters = max_iters;
   a.tf = const_cast<float*>(tf); a.k_walks = k_walks;
   a.g = g; a.Lf = Lf; a.gd = gd; a.gt = gt; a.gacc = gacc; a.nsteps = nsteps;
   set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
-             fp, ip, scratch, nullptr, nullptr);
+             fp, ip, scratch, tap, stat);
   return launch(kReplayKind, device, stream, a);
 }
 
-// Resident blocks of the two production kernels on `device` (see
-// resident_blocks), packed or dense, THREADS, and the device's SM count.
-int vpt_occupancy(int device, int dense, int* wave_blocks, int* trace_blocks, int* threads, int* sms) {
+// Resident blocks of the production kernels on `device` (see
+// resident_blocks), packed or dense: render_wave_kernel, trace_lanes_kernel,
+// THREADS, the device's SM count, then the record instantiation and
+// replay_lanes_kernel (after the first four, so that a caller of the
+// six-argument form of earlier sources reads the same first four).
+int vpt_occupancy(int device, int dense, int* wave_blocks, int* trace_blocks, int* threads, int* sms,
+                  int* record_blocks, int* replay_blocks) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   *threads = THREADS;
   err = resident_blocks(kWaveKind, false, dense != 0, device, wave_blocks);
   if (err != cudaSuccess) return (int)err;
   err = resident_blocks(kTraceKind, false, dense != 0, device, trace_blocks);
+  if (err != cudaSuccess) return (int)err;
+  err = resident_blocks(kRecordKind, false, dense != 0, device, record_blocks);
+  if (err != cudaSuccess) return (int)err;
+  err = resident_blocks(kReplayKind, false, dense != 0, device, replay_blocks);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }

@@ -31,8 +31,10 @@ max_iters - 1; the replay retires a lane whose counter reaches max_iters
 
 The functions here are the plain versions. On the card trace_rays_prb's
 forward runs the record instantiation of the lane kernel and its backward
-the replay kernel (render/megakernel.py record_lanes / replay_lanes), which
-scatter with float atomics; the JAX package's two-level compacted scatter
+the replay kernel (render/megakernel.py record_lanes / replay_lanes): both
+make each lane's initial state from its ray themselves, the record hands
+the replay each lane's last counter, and the replay takes its lanes longest
+first and scatters with float atomics; the JAX package's two-level compacted scatter
 (compact_scatter_fitting) exists to send fewer rows to the TPU's scatter
 engine and computes direct_scatter's sum, which index_add_ and atomics
 compute directly.
@@ -462,7 +464,18 @@ def _trace_rays_record(
                      after its last step), where the replay resumes;
       tf[i, w] == 0  the walk never ended (the iteration cap).
     """
-    if params.max_iters >= MAX_RECORD_ITERS:
+    st, tf = record_state(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k_walks)
+    return finalize_radiance(st, params), tf
+
+
+def record_state(
+    medium: Medium, params: IntegratorParams, bb_table, o_world, d_world, pixel_ids, stream,
+    k_walks: int,
+):
+    """_trace_rays_record's loop: (the final RayState, tf [N, K]). The state
+    carries each lane's last counter, which the record kernel hands the
+    replay. Refuses max_iters >= 2^24 when there are walks to record."""
+    if k_walks > 0 and params.max_iters >= MAX_RECORD_ITERS:
         raise ValueError(f"max_iters {params.max_iters} >= 2^24: counters would not be exact residuals")
     step = make_step(medium, params, bb_table)
     st0 = init_state(medium, o_world, d_world, params)
@@ -483,7 +496,7 @@ def _trace_rays_record(
              torch.zeros((N,), dtype=torch.int32, device=dev))
     st, (tf, _) = advance_lanes(step, st0, pixel_ids, lane_streams(stream, N, dev), params.max_iters,
                                 observe, extra)
-    return finalize_radiance(st, params), tf
+    return st, tf
 
 
 def _detached_medium(medium: Medium) -> Medium:
@@ -507,26 +520,36 @@ class _PathReplay(torch.autograd.Function):
         from ..render.megakernel import record_lanes, trace_rays_fused
 
         need_grad = any(ctx.needs_input_grad[:2]) and want_grad
-        record = need_grad and params.nee_enabled and k_walks > 0
-        if record:
-            L, tf = record_lanes(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k_walks)
+        tf = ctr = None
+        if need_grad:
+            # The record runs whenever a gradient is wanted, with k_walks = 0
+            # too: its counters order the replay's queue. Without NEE there
+            # is no walk to record.
+            k = k_walks if params.nee_enabled else 0
+            L, tf, ctr = record_lanes(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k)
+            if k == 0:
+                tf = None
         else:
+            # On the card this is the same estimate, bit for bit only where
+            # the voxel size is a power of two (record_lanes).
             L, _, _ = trace_rays_fused(medium, params, bb_table, o_world, d_world, pixel_ids, stream)
-            tf = None
         L = L.contiguous()
         ctx.medium, ctx.params, ctx.bb_table, ctx.stream = medium, params, bb_table, stream
         ctx.has_temp = temp_data is not None
         if need_grad:
-            ctx.save_for_backward(L, tf, o_world, d_world, pixel_ids)
+            ctx.save_for_backward(L, tf, ctr, o_world, d_world, pixel_ids)
         return L
 
     @staticmethod
     def backward(ctx, g_vec):
-        from ..render.megakernel import replay_lanes
+        from ..render.megakernel import longest_first, replay_lanes
 
-        L, tf, o_world, d_world, pixel_ids = ctx.saved_tensors
+        L, tf, ctr, o_world, d_world, pixel_ids = ctx.saved_tensors
+        # The kernel's queue takes the longest lanes first; the plain replay
+        # steps every lane at once and takes no order.
+        order = longest_first(ctr) if ctr.is_cuda else None
         d_density, d_temp = replay_lanes(ctx.medium, ctx.params, ctx.bb_table, o_world, d_world,
-                                         pixel_ids, ctx.stream, L, g_vec.contiguous(), tf=tf)
+                                         pixel_ids, ctx.stream, L, g_vec.contiguous(), tf=tf, order=order)
         if not ctx.has_temp:
             d_temp = None
         elif d_temp is None:  # a temperature grid that emits nothing

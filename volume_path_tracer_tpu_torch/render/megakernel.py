@@ -27,11 +27,15 @@ array, the majorant pairs and the dense temperature array.
 The gradient path (diff/prb.py trace_rays_prb) has two more:
 
   record_lanes       the forward of a train step: the record instantiation
-                     of trace_lanes_kernel, which runs the same lane step and
-                     records each NEE walk's residual; on CPU tensors its
-                     plain version, diff/prb.py _trace_rays_record.
+                     of trace_lanes_kernel, whose lanes are born from the
+                     world rays in the kernel, run the same lane step, record
+                     each NEE walk's residual and end as their radiance and
+                     last counter; on CPU tensors its plain version, diff/
+                     prb.py _trace_rays_record's loop.
   replay_lanes       the backward: replay_lanes_kernel walks each lane's path
-                     again from its draw counters and adds the gradient into
+                     again from its world ray and draw counters, taking the
+                     lanes in a given queue order (longest_first of the
+                     record's counters), and adds the gradient into
                      corner-row tables with float atomics, then the tables
                      are folded (prb.fold_corner_rows); on CPU tensors its
                      plain version, diff/prb.py replay_grads.
@@ -45,8 +49,10 @@ The kernels are compiled with nvcc at first use, from the checkout's own
 source, into volume_path_tracer_tpu_torch/_build/ (one library per source
 content), and loaded with ctypes: a plain C interface, no PyTorch headers.
 What a scene gives the kernels (the parameter arrays, the blackbody pairs,
-the launch scratch) is made once per (medium, params, camera) and kept
-(kernel_constants).
+the launch scratch) is made once and kept (kernel_constants): per (medium,
+params, camera) for a camera's launches, per the medium's geometry and
+params for the others, so a train step that rebuilds its medium reuses it.
+C_SIGNATURES is the C interface, in one table that the library is bound by.
 """
 from __future__ import annotations
 
@@ -60,12 +66,13 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..diff.prb import (
     MAX_RECORD_ITERS,
-    _trace_rays_record,
     dot3,
     fold_corner_rows,
+    record_state,
     replay_grads,
     replay_iteration_cap,
 )
@@ -82,6 +89,7 @@ from .integrator import (
     advance_lanes,
     count_capped,
     emission_enabled,
+    finalize_radiance,
     init_state,
     inv_voxel,
     lane_streams,
@@ -124,6 +132,36 @@ NVCC_FLAGS = (
 )
 
 _lib = None
+
+# The C interface of csrc/trace_lanes.cu: name -> (restype, argtypes), which
+# _library applies. _P: a pointer (tensor.data_ptr(), the stream, a host
+# array), _I: int, _U: unsigned int. A pointer passed where an int stands
+# would be cut to 32 bits, and that shows only on the card:
+# tests/test_torch_grad_kernels.py holds this table to the source's extern
+# "C" block.
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+# rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj,
+# tdata, n_tdata, fp, ip, scratch, tap, stat: the end of every launch's list
+_TABLES = (_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P)
+C_SIGNATURES = {
+    "vpt_num_fparams": (_I, ()),
+    "vpt_num_iparams": (_I, ()),
+    # device, stream, sf, si, pids, streams, n, max_steps
+    "vpt_trace_lanes": (_I, (_I, _P, _P, _P, _P, _P, _I, _I, *_TABLES)),
+    # device, stream, film, pids, start, n, stream_word, max_steps
+    "vpt_render_wave": (_I, (_I, _P, _P, _P, _I, _I, _U, _I, *_TABLES)),
+    # device, stream, o_world, o_stride, d_world, pids, streams, n,
+    # max_steps, L_out, ctr_out, tf, k_walks
+    "vpt_record_lanes": (_I, (_I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, *_TABLES)),
+    # device, stream, o_world, o_stride, d_world, pids, streams, order, n,
+    # max_steps, max_iters, tf, k_walks, g, Lf, gd, gt, gacc, nsteps
+    "vpt_replay_lanes": (_I, (_I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I,
+                              _P, _P, _P, _P, _P, _P, *_TABLES)),
+    # device, dense, wave_blocks, trace_blocks, threads, sms, record_blocks,
+    # replay_blocks
+    "vpt_occupancy": (_I, (_I, _I, _P, _P, _P, _P, _P, _P)),
+    "vpt_error_string": (ctypes.c_char_p, (_I,)),
+}
 
 
 # ---------------------------------------------------------------- state ----
@@ -263,24 +301,12 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        # rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj,
-        # n_maj, tdata, n_tdata, fp, ip, scratch, tap, stat
-        tables = [p, i, i, p, i, p, p, i, p, i, p, i, p, p, p, p, p]
-        lib.vpt_trace_lanes.argtypes = [i, p, p, p, p, p, i, i, *tables]
-        lib.vpt_render_wave.argtypes = [i, p, p, p, i, i, u, i, *tables]
-        lib.vpt_occupancy.argtypes = [i, i, p, p, p, p]
-        for fn in (lib.vpt_trace_lanes, lib.vpt_render_wave, lib.vpt_occupancy,
-                   lib.vpt_num_fparams, lib.vpt_num_iparams):
-            fn.restype = i
-        # rows .. scratch, without tap and stat. (A forward-only variant of
-        # the source, timed by chip_smoke.py --variants, has neither.)
-        if hasattr(lib, "vpt_record_lanes"):
-            lib.vpt_record_lanes.argtypes = [i, p, p, p, p, p, i, p, p, i, i, *tables[:-2]]
-            lib.vpt_replay_lanes.argtypes = [i, p, p, p, p, i, p, p, i, i, i, p, p, p, p, p, p, *tables[:-2]]
-            lib.vpt_record_lanes.restype = lib.vpt_replay_lanes.restype = i
-        lib.vpt_error_string.argtypes = [i]
-        lib.vpt_error_string.restype = ctypes.c_char_p
+        for name, (restype, argtypes) in C_SIGNATURES.items():
+            # A variant of the source timed by chip_smoke.py --variants may
+            # lack a function; it is then never called.
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.restype, fn.argtypes = restype, list(argtypes)
         _lib = lib
     return _lib
 
@@ -290,15 +316,25 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} failed: {_library().vpt_error_string(err).decode()}")
 
 
-def occupancy(device: torch.device, dense: bool = False):
-    """(resident blocks of render_wave_kernel, of trace_lanes_kernel, threads
-    per block, SM count) on `device`, as the CUDA runtime computes them, for
-    the packed or the dense instantiations. A launch starts at most the
-    resident blocks."""
-    out = [ctypes.c_int(0) for _ in range(4)]
+class Occupancy(NamedTuple):
+    """Resident blocks of each production kernel on a device, as the CUDA
+    runtime computes them (a launch starts at most these), threads per block
+    and the SM count."""
+
+    wave: int  # render_wave_kernel
+    trace: int  # trace_lanes_kernel
+    threads: int
+    sms: int
+    record: int  # trace_lanes_kernel's record instantiation
+    replay: int  # replay_lanes_kernel
+
+
+def occupancy(device: torch.device, dense: bool = False) -> Occupancy:
+    """The Occupancy of the packed or the dense instantiations on `device`."""
+    out = [ctypes.c_int(0) for _ in range(6)]
     err = _library().vpt_occupancy(device.index or 0, int(dense), *(ctypes.byref(v) for v in out))
     _raise_on(err, "occupancy query")
-    return tuple(v.value for v in out)
+    return Occupancy(*(v.value for v in out))
 
 
 def _param_fields(medium: Medium, params: IntegratorParams, n_pairs: int, emission: int,
@@ -376,6 +412,25 @@ class KernelConstants(NamedTuple):
 
 # key -> (weak references to the keyed objects, KernelConstants)
 _CONSTANTS = {}
+# Entries keyed by geometry outlive their media: at most this many are kept,
+# the oldest dropped first.
+GEOMETRY_ENTRIES = 16
+
+
+def _geometry(medium: Medium):
+    """What the constants of a launch without a camera are made of, beside
+    params and the blackbody table: the density and temperature grids' shape,
+    origin, offset and voxel size (no data), the brick grid's shape, packed
+    or dense and the row width, and the device."""
+    def grid(g):
+        if g is None:
+            return None
+        return tuple(g.shape), tuple(g.origin_ijk), tuple(g.world_offset), float(g.voxel_size)
+
+    rows = medium.density_rows
+    return (grid(medium.density), grid(medium.temperature), tuple(medium.majorants.brick_maj.shape),
+            0 if rows is None else int(rows.shape[1]), medium.temperature_rows is not None,
+            str(medium.device))
 
 
 def kernel_constants(
@@ -384,17 +439,57 @@ def kernel_constants(
     imaging_ratio: float = 0.0,
 ) -> KernelConstants:
     """The constants of (medium, params, bb_table, camera, ...), built and
-    checked at first use and kept while the medium lives. An entry is found
-    by its objects' ids and taken only if those ids still name the same live
-    objects, so a new Scene's medium, camera or table never meets another's
-    constants. Launches that share an entry share its scratch: they run on
-    one stream."""
-    objs = (medium, bb_table, camera)
-    key = (*(id(o) for o in objs), params, int(width), bool(use_jitter), float(imaging_ratio))
+    checked at first use and kept.
+
+    With a camera (render_wave) an entry is found by its objects' ids and
+    taken only if those ids still name the same live objects, so a new
+    Scene's medium, camera or table never meets another's constants; it goes
+    with its medium. Without one (trace_lanes, record_lanes, replay_lanes)
+    it is found by what the constants are made of (_geometry, params, the
+    table's identity) and the medium's tables are checked on every call: a
+    train step rebuilds its medium every step and reuses the previous
+    step's entry. Launches that share an entry share its scratch: they run
+    on one stream.
+    """
+    if camera is None:
+        dense, emission = _layout(medium, params, bb_table)
+        objs = (bb_table,)
+        key = ("geometry", _geometry(medium), id(bb_table), params)
+    else:
+        objs = (medium, bb_table, camera)
+        key = (*(id(o) for o in objs), params, int(width), bool(use_jitter), float(imaging_ratio))
     hit = _CONSTANTS.get(key)
     if hit is not None and all(r is None if o is None else r() is o for r, o in zip(hit[0], objs)):
         return hit[1]
+    if camera is not None:
+        dense, emission = _layout(medium, params, bb_table)
 
+    dev = medium.device
+    pairs = None
+    if emission:
+        pairs = blackbody_pairs(torch.as_tensor(bb_table, dtype=torch.float32, device=dev)).contiguous()
+    n_pairs = pairs.shape[0] if pairs is not None else 0
+    fields_f, fields_i = _param_fields(medium, params, n_pairs, emission, camera, width,
+                                       use_jitter, imaging_ratio)
+    consts = KernelConstants(
+        fp=_flatten(fields_f, np.float32), ip=_flatten(fields_i, np.int32), pairs=pairs,
+        scratch=torch.zeros(3, dtype=torch.int32, device=dev), emission=emission, dense=dense,
+    )
+    _CONSTANTS[key] = (tuple(None if o is None else weakref.ref(o) for o in objs), consts)
+    if camera is not None:
+        weakref.finalize(medium, _CONSTANTS.pop, key, None)
+    else:
+        if bb_table is not None:
+            weakref.finalize(bb_table, _CONSTANTS.pop, key, None)
+        kept = [k for k in _CONSTANTS if k[0] == "geometry"]
+        for old in kept[:-GEOMETRY_ENTRIES]:
+            _CONSTANTS.pop(old, None)
+    return consts
+
+
+def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor]):
+    """(dense, the kernel's I_EMISSION) of a medium, after checking its
+    tables as the kernels read them; raises on what they cannot take."""
     dev = medium.device
     rows = medium.density_rows
     dense = rows is None
@@ -408,11 +503,10 @@ def kernel_constants(
             or rows.data_ptr() % 16 or rows.shape[0] >= 2**31:
         raise ValueError("density_rows must be a contiguous, 16-byte aligned "
                          "float32 [R < 2^31, 8 or 16] table")
-    emission, pairs = 0, None
+    emission = 0
     if emission_enabled(medium, params):
         if bb_table is None:
             raise ValueError("an emissive medium needs the blackbody table")
-        pairs = blackbody_pairs(torch.as_tensor(bb_table, dtype=torch.float32, device=dev)).contiguous()
         if dense:
             emission = 3
             _check_dense(medium.temperature.data, "the temperature array", dev)
@@ -423,16 +517,7 @@ def kernel_constants(
                               or trows.data_ptr() % 16 or trows.shape[0] >= 2**31):
             raise ValueError("an 8-wide emissive medium needs its temperature "
                              f"corner rows as a contiguous table on {dev}")
-    n_pairs = pairs.shape[0] if pairs is not None else 0
-    fields_f, fields_i = _param_fields(medium, params, n_pairs, emission, camera, width,
-                                       use_jitter, imaging_ratio)
-    consts = KernelConstants(
-        fp=_flatten(fields_f, np.float32), ip=_flatten(fields_i, np.int32), pairs=pairs,
-        scratch=torch.zeros(3, dtype=torch.int32, device=dev), emission=emission, dense=dense,
-    )
-    _CONSTANTS[key] = (tuple(None if o is None else weakref.ref(o) for o in objs), consts)
-    weakref.finalize(medium, _CONSTANTS.pop, key, None)
-    return consts
+    return dense, emission
 
 
 def _check_dense(data: torch.Tensor, name: str, device):
@@ -637,76 +722,152 @@ def render_wave(
 
 # --------------------------------------------------------- gradient path ----
 
-def _ray_batch(what: str, medium: Medium, params: IntegratorParams, bb_table, o_world, d_world, pixel_ids,
-               stream):
-    """What a gradient-path launch takes of a ray batch on a CUDA device:
-    (device, sf, si of init_state, pixel ids and streams as int32 bits, the
-    scene's constants, the table arguments without tap and stat)."""
+def _stream_bits(stream, n: int, dev) -> torch.Tensor:
+    """The per-lane stream words (integrator.lane_streams) as int32 bits
+    [n] on `dev`, in one launch: an int64 tensor's low words (CUDA memory is
+    little-endian), or one word filled."""
+    if isinstance(stream, int):
+        word = stream & 0xFFFFFFFF
+        return torch.full((n,), word - (word >> 31 << 32), dtype=torch.int32, device=dev)
+    if isinstance(stream, torch.Tensor) and tuple(stream.shape) == (n,):
+        stream = stream.to(dev)
+        if stream.dtype == torch.int64:
+            return stream.contiguous().view(torch.int32)[0::2].contiguous()
+        if stream.dtype == torch.int32:
+            return stream.contiguous()
+    return _as_i32_bits(lane_streams(stream, n, dev))
+
+
+def _ray_args(what: str, medium: Medium, params: IntegratorParams, bb_table, o_world, d_world, pixel_ids,
+              stream, row_tap, stat):
+    """What a gradient-path launch takes of a ray batch on a CUDA device,
+    checked: (device, n, the origins' row stride, the scene's constants,
+    pixel ids and streams as int32 bits, the table arguments). The kernels
+    make each lane's initial state from its ray themselves."""
     if o_world.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {o_world.device}")
     dev = o_world.device
-    sf, si = pack_state(init_state(medium, o_world, d_world, params))
-    n = sf.shape[1]
+    n = d_world.shape[0]
+    _check(d_world, "d_world", torch.float32, (n, 3), dev)
+    if o_world.dtype != torch.float32 or tuple(o_world.shape) != (n, 3) or o_world.device != dev \
+            or o_world.stride() not in ((3, 1), (0, 1)):
+        raise ValueError(f"o_world: expected float32 ({n}, 3) on {dev}, contiguous or one origin "
+                         f"expanded over the rays, got {o_world.dtype} {tuple(o_world.shape)} strides "
+                         f"{o_world.stride()} on {o_world.device}")
     consts = kernel_constants(medium, params, bb_table)
-    pids = _as_i32_bits(pixel_ids.to(dev))
+    pids = pixel_ids.to(dev)
+    pids = pids.contiguous() if pids.dtype == torch.int32 else _as_i32_bits(pids)
     _check(pids, "pixel_ids", torch.int32, (n,), dev)
-    strm = _as_i32_bits(lane_streams(stream, n, dev))
-    return dev, sf, si, pids, strm, consts, _table_args(medium, consts, dev, None, None)[:-2]
+    strm = _stream_bits(stream, n, dev)
+    return dev, n, o_world.stride(0), consts, pids, strm, _table_args(medium, consts, dev, row_tap, stat)
 
 
 def record_lanes_plain(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
                        o_world: torch.Tensor, d_world: torch.Tensor, pixel_ids: torch.Tensor, stream,
                        k_walks: int):
-    """record_lanes's plain version: diff/prb.py _trace_rays_record."""
+    """record_lanes's plain version: diff/prb.py _trace_rays_record's loop;
+    the counters are its final state's."""
     global PLAIN_RECORD_LAUNCHES
     PLAIN_RECORD_LAUNCHES += 1
-    return _trace_rays_record(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k_walks)
+    st, tf = record_state(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k_walks)
+    return finalize_radiance(st, params), tf, st.ctr
 
 
 def record_lanes(
     medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
     o_world: torch.Tensor, d_world: torch.Tensor, pixel_ids: torch.Tensor, stream, k_walks: int,
+    row_tap: Optional[torch.Tensor] = None, stat: Optional[torch.Tensor] = None,
 ):
-    """The forward of the gradient path: (radiance [N, 3], tf [N, k_walks]),
-    where tf holds each lane's NEE walk residuals (diff/prb.py
-    _trace_rays_record's encoding), up to params.max_iters steps a lane.
+    """The forward of the gradient path: (radiance [N, 3], tf [N, k_walks],
+    ctr [N] int32), where tf holds each lane's NEE walk residuals (diff/
+    prb.py _trace_rays_record's encoding) and ctr each lane's last draw
+    counter (what orders the replay's queue, longest_first), up to
+    params.max_iters steps a lane.
 
-    On CUDA tensors this launches the record instantiation of
-    trace_lanes_kernel once (the same lane step as trace_lanes, so the
-    radiance is trace_rays_fused's), or raises; on CPU tensors it runs
-    record_lanes_plain. Refuses max_iters >= 2^24, where a counter would not
-    be exact as a float32 residual.
+    o_world [N, 3] (contiguous, or one origin expanded over the rays, as
+    Camera.generate_rays gives it) and d_world [N, 3] float32; pixel_ids [N]
+    and stream (one word or [N]) as for trace_rays. On CUDA tensors this
+    launches the record instantiation of trace_lanes_kernel once, or raises:
+    each lane is born in the kernel from its ray as init_state makes it,
+    runs trace_lanes's lane step and ends as its three outputs; every slot
+    of tf is written. The kernel divides by the voxel size where torch's
+    CUDA init_state multiplies by its reciprocal, so the radiance is
+    trace_rays_fused's bit for bit only where the voxel size is a power of
+    two; elsewhere a lane may start an ulp apart and end as another sample
+    of the same estimate. On CPU tensors it runs
+    record_lanes_plain. With residuals to record (k_walks > 0) it refuses
+    max_iters >= 2^24, where a counter would not be exact as a float32.
+    row_tap and stat: as in trace_lanes.
     """
     if o_world.device.type == "cpu":
         return record_lanes_plain(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k_walks)
-    if params.max_iters >= MAX_RECORD_ITERS:
+    if k_walks > 0 and params.max_iters >= MAX_RECORD_ITERS:
         raise ValueError(f"max_iters {params.max_iters} >= 2^24: counters would not be exact residuals")
     if k_walks < 0:
         raise ValueError(f"k_walks must be >= 0, got {k_walks}")
-    dev, sf, si, pids, strm, consts, tables = _ray_batch("record_lanes", medium, params, bb_table, o_world,
-                                                         d_world, pixel_ids, stream)
-    n = sf.shape[1]
-    tf = torch.zeros((n, k_walks), dtype=torch.float32, device=dev)
-    wc = torch.zeros((n,), dtype=torch.int32, device=dev)
+    dev, n, o_stride, consts, pids, strm, tables = _ray_args("record_lanes", medium, params, bb_table, o_world,
+                                                             d_world, pixel_ids, stream, row_tap, stat)
+    L = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    ctr = torch.empty((n,), dtype=torch.int32, device=dev)
+    tf = torch.empty((n, k_walks), dtype=torch.float32, device=dev)
     err = _library().vpt_record_lanes(
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream, sf.data_ptr(), si.data_ptr(),
-        wc.data_ptr(), tf.data_ptr(), int(k_walks), pids.data_ptr(), strm.data_ptr(), n,
-        int(params.max_iters), *tables,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream, o_world.data_ptr(), o_stride,
+        d_world.data_ptr(), pids.data_ptr(), strm.data_ptr(), n, int(params.max_iters), L.data_ptr(),
+        ctr.data_ptr(), tf.data_ptr(), int(k_walks), *tables,
     )
     _raise_on(err, "record_lanes launch")
     global RECORD_LAUNCHES, DENSE_RECORD_LAUNCHES
     RECORD_LAUNCHES += 1
     DENSE_RECORD_LAUNCHES += consts.dense
-    return sf[10:13].T, tf
+    return L, tf, ctr
+
+
+# Lanes a queue group holds (longest_first).
+QUEUE_GROUP = 1024
+
+
+def longest_first(ctr: torch.Tensor, group: int = QUEUE_GROUP) -> torch.Tensor:
+    """The replay's queue order from the record's counters, as int32 [N]:
+    groups of `group` consecutive lanes, the group with the longest lane
+    first, and the lanes of a group in index order. Consecutive lanes are
+    neighbouring pixels of one sample wave, whose rays read neighbouring
+    rows: a warp that takes them together gathers and adds coherently,
+    while a sort of the lanes themselves scatters every warp over the image
+    (measured: PERF.md, Findings). On the device, no host
+    synchronisation."""
+    n = ctr.shape[0]
+    top = F.pad(ctr, (0, (-n) % group)).view(-1, group).amax(1)
+    key = top.repeat_interleave(group)[:n]
+    return torch.argsort(key, descending=True, stable=True).to(torch.int32)
 
 
 def replay_lanes_plain(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
-                       o_world, d_world, pixel_ids, stream, L_fwd, g_vec, tf=None, with_check=False):
-    """replay_lanes's plain version: diff/prb.py replay_grads."""
+                       o_world, d_world, pixel_ids, stream, L_fwd, g_vec, tf=None, with_check=False,
+                       order=None):
+    """replay_lanes's plain version: diff/prb.py replay_grads. With an
+    order, the lanes go in permuted by it and the per-lane results come out
+    in the lanes' own order (the gradient grids sum in another order)."""
     global PLAIN_REPLAY_LAUNCHES
     PLAIN_REPLAY_LAUNCHES += 1
-    return replay_grads(medium, params, bb_table, o_world, d_world, pixel_ids, stream, L_fwd, g_vec,
-                        with_check=with_check, tf=tf)
+    if order is None:
+        return replay_grads(medium, params, bb_table, o_world, d_world, pixel_ids, stream, L_fwd, g_vec,
+                            with_check=with_check, tf=tf)
+    idx = order.to(torch.int64)
+    n = idx.shape[0]
+
+    def permuted(x):
+        if isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == n:
+            return x.index_select(0, idx)
+        return x
+
+    out = replay_grads(medium, params, bb_table, *map(permuted, (o_world, d_world, pixel_ids, stream, L_fwd,
+                                                                 g_vec)), with_check=with_check, tf=permuted(tf))
+    if not with_check:
+        return out
+    d_density, d_temp, acc_p, tot_p = out
+    acc, tot = torch.empty_like(acc_p), torch.empty_like(tot_p)
+    acc[idx], tot[idx] = acc_p, tot_p
+    return d_density, d_temp, acc, tot
 
 
 def replay_lanes(
@@ -714,28 +875,33 @@ def replay_lanes(
     o_world: torch.Tensor, d_world: torch.Tensor, pixel_ids: torch.Tensor, stream,
     L_fwd: torch.Tensor, g_vec: torch.Tensor, tf: Optional[torch.Tensor] = None,
     with_check: bool = False, lane_steps: Optional[torch.Tensor] = None,
-    row_tables: Optional[list] = None,
+    row_tables: Optional[list] = None, order: Optional[torch.Tensor] = None,
+    row_tap: Optional[torch.Tensor] = None, stat: Optional[torch.Tensor] = None,
 ):
     """The backward of the gradient path: (d_density [X, Y, Z],
     d_temperature or None), with diff/prb.py replay_grads's contract (and
-    its (gL_acc, gL_tot) when with_check).
+    its (gL_acc, gL_tot) when with_check). The rays, ids and stream are the
+    record's (record_lanes).
 
     On CUDA tensors this launches replay_lanes_kernel once (or raises): one
-    thread replays one lane, refilled from a queue, and adds each event's 8
-    corner weights into corner-row tables [(X+1)(Y+1)(Z+1), 8] with two
-    16-byte float atomics; the tables are then folded (prb.fold_corner_rows).
-    Atomics add in another order on every run: the result equals the plain
-    version's to float tolerance, not bitwise. For measurement (CUDA only):
-    lane_steps, with with_check, an int32 [N] tensor that gets each lane's
-    replay steps; row_tables, a list that gets the unfolded tables (gd, gt).
-    On CPU tensors this runs replay_lanes_plain.
+    thread replays one lane, born from its ray as the record's was, refilled
+    from a queue that takes the lanes in `order` (an int32 [N] permutation,
+    longest_first of the record's counters; None: index order), and adds
+    each event's 8 corner weights into corner-row tables [(X+1)(Y+1)(Z+1), 8]
+    with two 16-byte float atomics; the tables are then folded
+    (prb.fold_corner_rows). Each lane's replay is the same whatever the
+    order; atomics add in another order on every run, so the gradients equal
+    the plain version's to float tolerance, not bitwise. For measurement
+    (CUDA only): lane_steps, with with_check, an int32 [N] tensor that gets
+    each lane's replay steps; row_tables, a list that gets the unfolded
+    tables (gd, gt); row_tap and stat as in trace_lanes. On CPU tensors this
+    runs replay_lanes_plain.
     """
     if o_world.device.type == "cpu":
         return replay_lanes_plain(medium, params, bb_table, o_world, d_world, pixel_ids, stream, L_fwd,
-                                  g_vec, tf=tf, with_check=with_check)
-    dev, sf, si, pids, strm, consts, tables = _ray_batch("replay_lanes", medium, params, bb_table, o_world,
-                                                         d_world, pixel_ids, stream)
-    n = sf.shape[1]
+                                  g_vec, tf=tf, with_check=with_check, order=order)
+    dev, n, o_stride, consts, pids, strm, tables = _ray_args("replay_lanes", medium, params, bb_table, o_world,
+                                                             d_world, pixel_ids, stream, row_tap, stat)
     g_vec = g_vec.to(torch.float32).contiguous()
     L_fwd = L_fwd.to(torch.float32).contiguous()
     _check(g_vec, "g_vec", torch.float32, (n, 3), dev)
@@ -744,6 +910,8 @@ def replay_lanes(
     if tf is not None:
         k_walks = tf.shape[1]
         _check(tf, "tf", torch.float32, (n, k_walks), dev)
+    if order is not None:
+        _check(order, "order", torch.int32, (n,), dev)
     X, Y, Z = medium.density.shape
     gd = torch.zeros(((X + 1) * (Y + 1) * (Z + 1), 8), dtype=torch.float32, device=dev)
     gt = None
@@ -756,10 +924,10 @@ def replay_lanes(
         steps = lane_steps if lane_steps is not None else torch.zeros((n,), dtype=torch.int32, device=dev)
         _check(steps, "lane_steps", torch.int32, (n,), dev)
     err = _library().vpt_replay_lanes(
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream, sf.data_ptr(), si.data_ptr(),
-        _ptr(tf), k_walks, pids.data_ptr(), strm.data_ptr(), n, replay_iteration_cap(params),
-        int(params.max_iters), g_vec.data_ptr(), L_fwd.data_ptr(), gd.data_ptr(), _ptr(gt), _ptr(gacc),
-        _ptr(steps), *tables,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream, o_world.data_ptr(), o_stride,
+        d_world.data_ptr(), pids.data_ptr(), strm.data_ptr(), _ptr(order), n, replay_iteration_cap(params),
+        int(params.max_iters), _ptr(tf), k_walks, g_vec.data_ptr(), L_fwd.data_ptr(), gd.data_ptr(), _ptr(gt),
+        _ptr(gacc), _ptr(steps), *tables,
     )
     _raise_on(err, "replay_lanes launch")
     global REPLAY_LAUNCHES, DENSE_REPLAY_LAUNCHES
@@ -794,13 +962,15 @@ def simt_efficiency(steps: torch.Tensor, group: int = 32) -> float:
 
 def stat_size(device: torch.device) -> int:
     """Length of a launch_stat tensor: two counters, then two clock readings
-    for each warp the card can hold resident (of any instantiation)."""
-    blocks = [b for dense in (False, True) for b in occupancy(device, dense)[:2]]
-    return 2 + 2 * max(blocks) * occupancy(device)[2] // 32
+    for each warp the card can hold resident at all (whatever a kernel's
+    registers allow, so every instantiation of every source fits)."""
+    props = torch.cuda.get_device_properties(device)
+    per_sm = getattr(props, "max_threads_per_multi_processor", 2048)
+    return 2 + 2 * props.multi_processor_count * per_sm // 32
 
 
 def launch_stat(device: torch.device) -> torch.Tensor:
-    """A zeroed tensor for the `stat` argument of render_wave / trace_lanes."""
+    """A zeroed tensor for the `stat` argument of any launch."""
     return torch.zeros(stat_size(device), dtype=torch.int64, device=device)
 
 
