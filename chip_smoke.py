@@ -6,16 +6,19 @@
 Phases, each stopping the run with a non-zero exit on failure:
 
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile csrc/trace_lanes.cu with nvcc; print the seconds taken,
-              registers and spills of each kernel, and the occupancy
+  2. build    compile csrc/trace_lanes.cu with nvcc and the .nvdb core with
+              g++, at once; print the seconds taken, registers and spills of
+              each kernel, and the occupancy
   3. kernels  both CUDA kernels against their plain PyTorch versions on the
               card. trace_lanes (state in, state out): one step on a
               mid-flight flagship batch (every state field, lane by lane),
               then full traces on three small scenes. render_wave (pixel ids
               in, film out): the same three scenes through a small camera.
               Each of these once more on the same media built with
-              pack=False (the dense instantiations of both kernels), against
-              the plain version and against the packed kernel's result
+              pack=False (the dense instantiations of both kernels), in both
+              forms of their arrays (the padded copies a grid that fits in
+              L2 gets, and the grids' own arrays), against the plain
+              version and against the packed kernel's result
   4. flagship the main path, Scene.from_config -> render -> film_to_srgb_u8
               -> write_png, on the flagship configuration (wdas_cloud
               transport, fog_sphere(30, 6) = 77^3, 256x256 at 16 waves);
@@ -25,20 +28,27 @@ Phases, each stopping the run with a non-zero exit on failure:
               efficiency and idle tail, the device time against max_steps,
               the ray-batch path (render_rays_wave, which goes through
               trace_lanes), and a profile of one pass. Then the unpacked
-              flagship medium: one whole wave by each dense kernel against
-              its plain version and the packed kernel, the dense kernels'
-              lines, and the unpacked main path and ray-batch path
+              flagship medium, from its padded copies and from its own
+              arrays: one whole wave by each dense kernel against its plain
+              version and the packed kernel, the dense kernels' lines, the
+              dense and packed wave side by side (time, distinct sectors and
+              rows read, SIMT efficiency, idle tail), the ray-batch path;
+              and the unpacked main path
   5. fire     the same path on bench.py's fire cell (fire transport,
               fire_plume(96, 28), 256x256, 4 waves): the misaligned
               temperature grid (8-wide rows plus the temperature gather), the
               aligned one (16-wide rows) and the unpacked medium (the dense
-              temperature array), with the kernel's lines
+              temperature array), with the kernel's lines, the 8-wide and
+              the dense wave side by side
   6. 512^3    big_cloud(512) with its 4.3 GB fused table, 256x256, 2 waves;
               rays/s, peak device memory and the kernel's lines (the
               generated grid is cached in chip_smoke_out/ for later runs).
               The same grid written to .nvdb and read back, C++ core against
               numpy path (host seconds, file size), and rendered unpacked
-              (0.54 GB on the card) beside the packed numbers
+              (0.54 GB on the card, no padded copy, a peak of at most
+              1.9 GB): one wave's dense film bitwise equal to the packed
+              kernel's, the two waves side by side, and the same wave from a
+              padded copy (the other side of the L2 rule)
   7. cli      cli.main on scene files whose volume_path names a .nvdb written
               here (the flagship stand-in and the fire plume, 256x256): the
               medium read back and the film against the direct build; then
@@ -46,9 +56,10 @@ Phases, each stopping the run with a non-zero exit on failure:
   9. train    the gradient path (after phase 8's summary lines): the record
               kernel (lanes born from the rays in the kernel) against
               trace_lanes_kernel fed torch's init_state on the flagship wave
-              (packed and dense): radiance and counters bitwise; on the
-              three small scenes, with media rebuilt by medium_with_params,
-              packed and dense, k_walks 16 and 0, the replay kernel's
+              (packed, dense from padded copies and from own arrays) and at
+              voxel size 0.1: radiance and counters bitwise; on the three
+              small scenes, with media rebuilt by medium_with_params, packed
+              and dense (both forms), k_walks 16 and 0, the replay kernel's
               gradient grids (longest-first order) against the plain
               replay; the full 131,072-lane density step: both kernels
               against their plain versions, the accounting invariant on
@@ -66,12 +77,14 @@ path, error against the plain version, times and bound); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. Images and the CLI's
 scene file go to chip_smoke_out/ (listed in .gitignore).
 
-Other modes: --phase 9 (phases 1, 2 and 9 alone, no result lines); --train
-[DIR] (the gradient kernels' times and the three train cells of the port in
-the checkout DIR, so that a parent commit unpacked with git archive and
-this one compare on one machine); --variants (variants of the kernel source
-timed in turns in one process, see variants()).
+Other modes: --phase 9 (phases 1, 2 and 9 alone, no result lines);
+--compare [DIR] (the port in the checkout DIR with its own code: the wave
+cells packed and dense, the gradient kernels and the three train cells, so
+that a parent commit unpacked with git archive and this one compare on one
+machine, in turns, see compare()); --variants (variants of the kernel
+source timed in turns in one process on the same media, see variants()).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -263,6 +276,7 @@ def big_cloud_cached(n):
 
     with open(procedural.__file__, "rb") as f:
         tag = hashlib.sha1(f.read()).hexdigest()[:12]
+    os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, f"big_cloud_{n}-{tag}.npy")
     if os.path.exists(path):
         h = n // 2
@@ -339,7 +353,18 @@ def wave_kernel_report(scene, what, card):
           f"SIMT efficiency as issued {st['simt_efficiency']:.4f} ({st['warp_steps']} warp-steps on "
           f"{st['warps']} warps); under half of the warps at work for {st['half_idle_share']:.3f} of the "
           f"measuring launch ({st['span_ns'] / 1e6:.4f} ms on the device timer) on {card}")
-    return dict(ms=ms, bound_ms=bound_ms, bound_by=by, **st)
+    return dict(ms=ms, bound_ms=bound_ms, bound_by=by, read=read_words, **st)
+
+
+def dense_beside_packed(packed, dense, what, card):
+    """The packed and the dense wave kernel on the same wave, side by side
+    (two wave_kernel_report results): the lanes take the same paths, so
+    whatever differs is the fetch."""
+    print(f"{what} wave, packed | dense kernel: {packed['ms']:.4f} | {dense['ms']:.4f} ms (dense / packed "
+          f"{dense['ms'] / packed['ms']:.3f}); lane-steps {packed['lane_steps']} | {dense['lane_steps']}; read "
+          f"{packed['read']} | {dense['read']}; SIMT efficiency as issued {packed['simt_efficiency']:.4f} | "
+          f"{dense['simt_efficiency']:.4f}; under half of the warps at work for {packed['half_idle_share']:.3f} | "
+          f"{dense['half_idle_share']:.3f} of the measuring launch on {card}")
 
 
 def crop_to_active(grid):
@@ -360,6 +385,7 @@ def reset_launch_counts(mk):
     mk.DENSE_WAVE_LAUNCHES = mk.DENSE_LAUNCHES = 0
     mk.RECORD_LAUNCHES = mk.REPLAY_LAUNCHES = mk.PLAIN_RECORD_LAUNCHES = mk.PLAIN_REPLAY_LAUNCHES = 0
     mk.DENSE_RECORD_LAUNCHES = mk.DENSE_REPLAY_LAUNCHES = 0
+    mk.PADDED_WAVE_LAUNCHES = mk.PADDED_LAUNCHES = mk.PADDED_RECORD_LAUNCHES = mk.PADDED_REPLAY_LAUNCHES = 0
 
 
 def profile_pass(scene, png_path, best_s, what):
@@ -433,7 +459,7 @@ def main_path(scene, passes, png_path, what, card):
     times, render_times, film, img = render_passes(scene, passes, png_path)
     counts = dict(render_wave=mk.WAVE_LAUNCHES, trace_lanes=mk.LAUNCHES,
                   render_wave_plain=mk.PLAIN_WAVE_LAUNCHES, trace_lanes_plain=mk.PLAIN_LAUNCHES,
-                  render_wave_dense=mk.DENSE_WAVE_LAUNCHES)
+                  render_wave_dense=mk.DENSE_WAVE_LAUNCHES, render_wave_padded=mk.PADDED_WAVE_LAUNCHES)
     waves = scene.num_waves
     rays_s = scene.width * scene.height * waves / min(times)
     ncap = sum(int(render_wave_image(scene, w, return_ncap=True)[1]) for w in range(1, waves + 1))
@@ -449,6 +475,9 @@ def main_path(scene, passes, png_path, what, card):
     dense_want = counts["render_wave"] if scene.medium.density_rows is None else 0
     check(counts["render_wave_dense"] == dense_want,
           f"{what}: {counts['render_wave_dense']} dense launches, expected {dense_want}")
+    padded_want = dense_want if dense_want and dense_form(scene.medium) == "padded" else 0
+    check(counts["render_wave_padded"] == padded_want,
+          f"{what}: {counts['render_wave_padded']} launches read padded copies, expected {padded_want}")
     check(counts["render_wave_plain"] == 0 and counts["trace_lanes_plain"] == 0,
           f"{what}: the main path ran a plain version")
     check(finite and weights_ok, f"{what}: film is not finite or has wrong weights")
@@ -507,7 +536,7 @@ def host_calls(prof):
 def ptxas_report(log_text):
     """{kernel instantiation: (registers, spill store bytes, spill load
     bytes)} from nvcc's -Xptxas -v report, with template arguments written
-    out (trace_lanes_kernel<false, false, true>)."""
+    out (trace_lanes_kernel<false, 2, true>: kTap, the dense form, kRecord)."""
     import re
 
     out, name = {}, None
@@ -516,9 +545,9 @@ def ptxas_report(log_text):
         if m:
             mangled = m.group(1)
             base = re.search(r"(render_wave_kernel|trace_lanes_kernel|replay_lanes_kernel)", mangled)
-            bools = re.findall(r"Lb(\d)E", mangled)
+            args = re.findall(r"L([bi])(\d+)E", mangled)
             name = (base.group(1) if base else mangled) + "<" + ", ".join(
-                "true" if b == "1" else "false" for b in bools) + ">"
+                ("true" if v == "1" else "false") if t == "b" else v for t, v in args) + ">"
             out[name] = [0, 0, 0]
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -528,18 +557,6 @@ def ptxas_report(log_text):
         if m and name:
             out[name][0] = int(m.group(1))
     return {k: tuple(v) for k, v in out.items()}
-
-
-def grad_api(mk, record_out):
-    """(L, tf, replay keyword arguments) of a record_lanes result, for this
-    checkout's wrappers (which also return the counters, and whose replay
-    takes the longest-first order built from them) and for an earlier
-    commit's (radiance and residuals only). The second branch serves only a
-    parent without the counters; once every parent has them it goes."""
-    L, tf = record_out[0], record_out[1]
-    if len(record_out) == 3:
-        return L, tf, {"order": mk.longest_first(record_out[2])}
-    return L, tf, {}
 
 
 def density_step(dev):
@@ -571,16 +588,17 @@ def density_step(dev):
 
 def grad_kernel_times(mk, med, wdas, rays, g, reps=5):
     """(record ms, replay ms) on the density step, CUPTI, mean of `reps`
-    each, through whichever wrapper contract the package has (grad_api)."""
+    each; the replay in the longest-first order, as on the main path."""
     import torch
 
     K = 16
     ray_args = (med, wdas, None, *rays)
-    out = mk.record_lanes(*ray_args, K)
-    L, tf, kw = grad_api(mk, out)
+    L, tf, ctr = mk.record_lanes(*ray_args, K)
+    order = mk.longest_first(ctr)
     torch.cuda.synchronize()
     rec_ms = kernel_device_ms(lambda: mk.record_lanes(*ray_args, K), reps, "trace_lanes_kernel")
-    rep_ms = kernel_device_ms(lambda: mk.replay_lanes(*ray_args, L, g, tf=tf, **kw), reps, "replay_lanes_kernel")
+    rep_ms = kernel_device_ms(lambda: mk.replay_lanes(*ray_args, L, g, tf=tf, order=order), reps,
+                              "replay_lanes_kernel")
     return rec_ms, rep_ms
 
 
@@ -589,7 +607,7 @@ def train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids):
     (best of 3 chains of TRAIN_CHAIN steps), launches, peak memory, and one
     profiled step (device time by kernel, busy share, host calls). Uses only
     what every commit of the port since the gradient path has, so an earlier
-    commit's package can be timed by the same code (--train). Returns
+    commit's package can be timed by the same code (--compare). Returns
     ({"record": launches, "replay": launches}, {cell: summary})."""
     import numpy as np
     import torch
@@ -704,12 +722,12 @@ def train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids):
     return launches, summary
 
 
-def measuring_launch(mk, medium, params, dev, launch):
+def measuring_launch(mk, medium, params, dev, launch, bb_table=None):
     """launch(row_tap, stat) once with a fresh tap and stat; returns
     (read_launch_stat, the tap)."""
     import torch
 
-    tap = mk.new_row_tap(medium, params, None)
+    tap = mk.new_row_tap(medium, params, bb_table)
     stat = mk.launch_stat(dev)
     launch(tap, stat)
     torch.cuda.synchronize()
@@ -738,10 +756,14 @@ def train_phase(card, dev):
 
     # (a) the record kernel against trace_lanes_kernel on the flagship wave:
     # the same rays, the record's lanes born in the kernel, trace_lanes's
-    # from torch's init_state: radiance and counters bitwise
+    # from torch's init_state: radiance and counters bitwise; packed, and
+    # dense from the padded copies and from the grids' own arrays
     flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
-    for pack in (True, False):
+    for form in ("packed", "padded", "own"):
+        pack = form == "packed"
         med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=pack)
+        if form == "own":
+            med = without_copies(med)
         sc = Scene.from_config(flag_cfg, med, max_iters=FLAGSHIP_MAX_ITERS)
         W, H = sc.width, sc.height
         pids = torch.arange(W * H, dtype=torch.int32, device=dev)
@@ -757,7 +779,7 @@ def train_phase(card, dev):
         same = bool(torch.equal(L_r, sf_t[10:13].T))
         same_ctr = bool(torch.equal(ctr, si_t[2]))
         walks = int((tf != 0).sum())
-        line = (f"record kernel, flagship wave ({W * H} lanes, {'packed' if pack else 'dense'}): radiance bitwise "
+        line = (f"record kernel, flagship wave ({W * H} lanes, {form}): radiance bitwise "
                 f"equal to trace_lanes_kernel's {same}, counters bitwise equal {same_ctr}; {walks} walks recorded "
                 f"in {K} slots a lane")
         if pack:
@@ -765,14 +787,13 @@ def train_phase(card, dev):
             tl_ms = kernel_device_ms(lambda: mk.trace_rays_fused(*ray_args), 10, "trace_lanes_kernel")
             line += f"; record kernel {rec_ms:.4f} ms, trace_lanes_kernel {tl_ms:.4f} ms (device time, mean of the kept records of 3 windows of 10 launches)"
         print(line + f" on {card}", flush=True)
-        check(same, f"the record kernel's flagship radiance differs from trace_lanes_kernel's ({'packed' if pack else 'dense'})")
-        check(same_ctr, f"the record kernel's counters differ from trace_lanes_kernel's ({'packed' if pack else 'dense'})")
+        check(same, f"the record kernel's flagship radiance differs from trace_lanes_kernel's ({form})")
+        check(same_ctr, f"the record kernel's counters differ from trace_lanes_kernel's ({form})")
         check(walks > 0, "the record kernel recorded no walk on the flagship wave")
     del med, sc, L_r, tf, sf0, si0, sf_t, si_t
-    # The same at a voxel size of 0.1: the kernel divides by it, torch's
-    # init_state multiplies by its reciprocal, so a lane may start an ulp
-    # apart. Measured and held to the kernel-against-plain statistic, not
-    # bitwise.
+    # The same at a voxel size of 0.1, which is not a power of two: the
+    # kernel's world -> index and init_state's (grids/grid.py) are both a
+    # true division, so bitwise here too.
     v = 0.1
     med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0, voxel_size=v), pack=True)
     rng = np.random.default_rng(4)
@@ -795,12 +816,14 @@ def train_phase(card, dev):
     print(f"record kernel at voxel size {v} ({n_v} lanes, packed): lanes bitwise equal to trace_lanes_kernel's "
           f"{bitwise:.4f}, lane-close {close:.4f} (rtol 1e-4, atol 1e-5), counters equal {same_ctr:.4f}, "
           f"radiance relative L2 {rel_l2(L_r, L_t):.2e} on {card}", flush=True)
-    check(close > 0.95, f"voxel size {v}: record kernel and trace_lanes_kernel lane-close {close} <= 0.95")
+    check(bitwise == 1.0, f"voxel size {v}: record kernel and trace_lanes_kernel bitwise equal on {bitwise} of the lanes")
+    check(same_ctr == 1.0, f"voxel size {v}: counters equal on {same_ctr} of the lanes")
     del med, o_v, d_v, aim, sf0, si0, sf_t, si_t, L_r, L_t, ctr
 
     # (b) the replay kernel (longest-first order, as on the main path)
     # against the plain replay: three small scenes through
-    # medium_with_params, packed and dense, k_walks 16 and 0.
+    # medium_with_params, packed and dense (padded copies and own arrays),
+    # k_walks 16 and 0.
     dens, temp = fire_plume(height=40, radius=10.0)
     temp_al = dense_grid_from_array(temp.data, temp.origin_ijk, temp.voxel_size, (0.0, 0.0, 0.0))
     bb = torch.from_numpy(blackbody_xyz_table()).to(dev)
@@ -811,7 +834,7 @@ def train_phase(card, dev):
         ("fire_plume_aligned", (dens, temp_al), integ.IntegratorParams(**FIRE_PARAMS), bb, (5, 35), (-10, 10)),
     ]
     N = SMALL_LANES
-    worst = 0.0
+    worst, n_cases = 0.0, 0
     t_cases = time.perf_counter()
     for name, grids, prm, bbt, yr, zr in cases:
         rng = np.random.default_rng(0)
@@ -826,29 +849,38 @@ def train_phase(card, dev):
                                   base.temperature.data if base.temperature is not None else None)
         for pack in (True, False):
             med = inv.medium_with_params(base, og, pack=pack)
-            ray_args = (med, prm, bbt, o, d, lp, s)
-            L_k, tf_k, ctr_k = mk.record_lanes(*ray_args, K)
-            L_p, tf_p, ctr_p = mk.record_lanes_plain(*ray_args, K)
-            agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
-            check(float(agree.float().mean()) > 0.95, f"{name}: record kernel and plain agree on {float(agree.float().mean())}")
-            g = g_full * agree[:, None]
-            for kw in (K, 0):
-                gk = mk.replay_lanes(*ray_args, L_k, g, tf=tf_k if kw else None, order=mk.longest_first(ctr_k))
-                gp = mk.replay_lanes_plain(*ray_args, L_p, g, tf=tf_p if kw else None)
-                errs = []
-                for what, a, b in (("density", gk[0], gp[0]), ("temperature", gk[1], gp[1])):
-                    if b is None:
-                        continue
-                    check(float(b.abs().max()) > 0, f"{name}: zero plain {what} gradient")
-                    errs.append((what, rel_l2(a, b)))
-                worst = max([worst] + [e for _, e in errs])
-                print(f"replay kernel, {name} ({'packed' if pack else 'dense'}, k_walks {kw}, {N} lanes, "
-                      f"{int(agree.sum())} with the cotangent): relative L2 against the plain replay "
-                      + ", ".join(f"{w} {e:.2e}" for w, e in errs))
-                for what, e in errs:
-                    check(e <= 1e-3, f"{name} ({'packed' if pack else 'dense'}, k_walks {kw}): {what} gradient "
-                                     f"relative L2 {e} > 1e-3")
-    print(f"replay kernel, twelve small cases: worst relative L2 {worst:.2e} (bound 1e-3: float atomics add in "
+            plain_args = (med, prm, bbt, o, d, lp, s)
+            L_p, tf_p, ctr_p = mk.record_lanes_plain(*plain_args, K)
+            gp_walks = {}
+            # the dense kernels from the padded copies and from the own arrays
+            for form, kmed in ((("packed", med),) if pack else (("padded", med), ("own", without_copies(med)))):
+                check(pack or dense_form(kmed) == form, f"{name}: the rebuilt medium's arrays are not {form}")
+                ray_args = (kmed, prm, bbt, o, d, lp, s)
+                L_k, tf_k, ctr_k = mk.record_lanes(*ray_args, K)
+                agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
+                check(float(agree.float().mean()) > 0.95,
+                      f"{name} ({form}): record kernel and plain agree on {float(agree.float().mean())}")
+                g = g_full * agree[:, None]
+                for kw in (K, 0):
+                    gk = mk.replay_lanes(*ray_args, L_k, g, tf=tf_k if kw else None, order=mk.longest_first(ctr_k))
+                    key = (kw, bytes(agree.cpu().numpy()))
+                    if key not in gp_walks:
+                        gp_walks[key] = mk.replay_lanes_plain(*plain_args, L_p, g, tf=tf_p if kw else None)
+                    gp = gp_walks[key]
+                    errs = []
+                    for what, a, b in (("density", gk[0], gp[0]), ("temperature", gk[1], gp[1])):
+                        if b is None:
+                            continue
+                        check(float(b.abs().max()) > 0, f"{name}: zero plain {what} gradient")
+                        errs.append((what, rel_l2(a, b)))
+                    worst = max([worst] + [e for _, e in errs])
+                    n_cases += 1
+                    print(f"replay kernel, {name} ({form}, k_walks {kw}, {N} lanes, "
+                          f"{int(agree.sum())} with the cotangent): relative L2 against the plain replay "
+                          + ", ".join(f"{w} {e:.2e}" for w, e in errs))
+                    for what, e in errs:
+                        check(e <= 1e-3, f"{name} ({form}, k_walks {kw}): {what} gradient relative L2 {e} > 1e-3")
+    print(f"replay kernel, {n_cases} small cases: worst relative L2 {worst:.2e} (bound 1e-3: float atomics add in "
           f"another order every run, FMA contraction); {time.perf_counter() - t_cases:.1f} s with the plain versions")
 
     # (c) the full density step: bench.py's density cell, first step
@@ -933,8 +965,9 @@ def train_phase(card, dev):
     replay_index_ms = float(np.mean(turns["index order"]))
 
     def regs_of(kernel):
-        r = [regs.get(kernel.format(b), (0, 0, 0)) for b in ("false", "true")]
-        return f"{r[0][0]} / {r[1][0]} registers, spill stores {r[0][1]} / {r[1][1]} B (packed / dense)"
+        r = [regs.get(kernel.format(form), (0, 0, 0)) for form in (0, 2, 1)]
+        return (f"{r[0][0]} / {r[1][0]} / {r[2][0]} registers, spill stores {r[0][1]} / {r[1][1]} / {r[2][1]} B "
+                "(packed / dense, padded copies / dense, own arrays)")
 
     def stat_words(st):
         return (f"SIMT efficiency as issued {st['simt_efficiency']:.4f} ({st['warp_steps']} warp-steps on "
@@ -1000,42 +1033,157 @@ def train_phase(card, dev):
     ]
 
 
-def train_compare(repo_dir):
-    """python3 chip_smoke.py --train [DIR]
+def wave_cells(dev):
+    """The cells --variants and --compare time, each packed and unpacked:
+    {(cell, pack): Scene} for the flagship (256x256 and 1920x1080), the fire
+    cell (8-wide rows packed) and the 512^3 cloud. The unpacked media are
+    built as the port builds them (with padded copies where it keeps
+    them)."""
+    import torch
 
-    The gradient path's numbers for the port in the checkout DIR (default:
-    this one), so that two commits compare on one card: run it for each,
-    in turns (parent, change, change, parent), on one machine. Prints the
-    record and replay kernels' device times on bench.py's density step
-    (CUPTI, kernel_device_ms of 5) and the three train cells (phase 9 (d)), then one
-    JSON line. Works for any commit of the port that has the gradient path.
+    from volume_path_tracer_tpu_torch.grids.procedural import fire_plume, fog_sphere
+    from volume_path_tracer_tpu_torch.models.medium import Medium
+    from volume_path_tracer_tpu_torch.render.renderer import Scene
+    from volume_path_tracer_tpu_torch.utils.config import loads_configuration
+
+    flag_grid = fog_sphere(radius=30.0, falloff=6.0)
+    flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
+    hd_cfg = loads_configuration(json.dumps(HD_SCENE))
+    f_dens, f_temp = fire_plume(height=96, radius=28.0)
+    fire_cfg = loads_configuration(json.dumps(FIRE_SCENE))
+    cells = {}
+    for pack in (True, False):
+        flag_med = Medium.from_grids(flag_grid, pack=pack)
+        cells["flagship", pack] = Scene.from_config(flag_cfg, flag_med, max_iters=FLAGSHIP_MAX_ITERS)
+        cells["flagship 1920x1080", pack] = Scene.from_config(hd_cfg, flag_med, max_iters=FLAGSHIP_MAX_ITERS)
+        cells["fire", pack] = Scene.from_config(fire_cfg, Medium.from_grids(f_dens, f_temp, pack=pack),
+                                                max_iters=FIRE_MAX_ITERS)
+    cloud, _ = big_cloud_cached(512)
+    cloud_cfg = dict(WDAS_SCENE, num_waves=2)
+    cloud_cfg["camera_parameters"] = dict(WDAS_SCENE["camera_parameters"], position=[900.0, 0.0, 0.0], vfov_deg=40.0)
+    cloud_cfg = loads_configuration(json.dumps(cloud_cfg))
+    for pack in (True, False):
+        cells["512^3", pack] = Scene.from_config(cloud_cfg, Medium.from_grids(cloud, pack=pack),
+                                                 max_iters=FLAGSHIP_MAX_ITERS)
+    del cloud
+    torch.cuda.synchronize()
+    return cells
+
+
+def dense_form(medium):
+    """How the dense kernels read this unpacked medium: "padded" (the grids'
+    padded copies) or "own" (the grids' own arrays, as commits before the
+    copies always do)."""
+    return "padded" if getattr(medium.density, "padded", None) is not None else "own"
+
+
+def without_copies(medium):
+    """The same unpacked medium with its grids' padded copies dropped: the
+    dense kernels then read the grids' own arrays, the form a grid too large
+    for L2 takes."""
+    t = medium.temperature
+    return dataclasses.replace(medium, density=dataclasses.replace(medium.density),
+                               temperature=dataclasses.replace(t) if t is not None else None)
+
+
+def time_wave_cells(cells, card, label):
+    """Wave 1 of every cell of wave_cells, packed and dense side by side:
+    render_wave_kernel device ms (CUPTI, kernel_device_ms of 10, or 5 above
+    65,536 pixels), the films, and from a measuring launch (not at
+    1920x1080) lane-steps, what the wave read, SIMT efficiency and idle
+    tail. Prints one line a cell; returns ({cell: {packed_ms, dense_ms,
+    dense_form}}, {(cell, pack): film})."""
+    import torch
+
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+
+    summary, films = {}, {}
+    for cell in ("flagship", "fire", "512^3", "flagship 1920x1080"):
+        got = {}
+        for pack in (True, False):
+            sc = cells[cell, pack]
+            dev = sc.device
+            n = sc.width * sc.height
+            kw = wave_args(sc, 1)
+            film = torch.zeros((sc.height, sc.width, 4), dtype=torch.float32, device=dev)
+            mk.render_wave(film=film, pixels=range(0, n), **kw)
+            films[cell, pack] = film
+            scratch = torch.zeros_like(film)
+            ms = kernel_device_ms(lambda: mk.render_wave(film=scratch, pixels=range(0, n), **kw),
+                                  5 if n > 65536 else 10, "render_wave_kernel")
+            got[pack] = dict(ms=ms)
+            if cell != "flagship 1920x1080":
+                st, tap = measuring_launch(mk, sc.medium, sc.params, dev, lambda tap, stat: mk.render_wave(
+                    film=scratch, pixels=range(0, n), row_tap=tap, stat=stat, **kw), sc.bb_table)
+                got[pack].update(st, read=tap_bytes(sc.medium, sc.params, sc.bb_table, tap)[1])
+        p, d = got[True], got[False]
+        form = dense_form(cells[cell, False].medium)
+        line = (f"{label}, {cell} wave 1: render_wave_kernel packed | dense ({form}) {p['ms']:.4f} | "
+                f"{d['ms']:.4f} ms (dense / packed {d['ms'] / p['ms']:.3f}); dense film bitwise equal to the "
+                f"packed film {bool(torch.equal(films[cell, True], films[cell, False]))}")
+        if "lane_steps" in p:
+            line += (f"; lane-steps {p['lane_steps']} | {d['lane_steps']}; read {p['read']} | {d['read']}; "
+                     f"SIMT efficiency {p['simt_efficiency']:.4f} | {d['simt_efficiency']:.4f}; under half of "
+                     f"the warps at work for {p['half_idle_share']:.3f} | {d['half_idle_share']:.3f}")
+        print(line + f" on {card}", flush=True)
+        summary[cell] = {"packed_ms": p["ms"], "dense_ms": d["ms"], "dense_form": form}
+    return summary, films
+
+
+def compare(repo_dir):
+    """python3 chip_smoke.py --compare [DIR]
+
+    The port in the checkout DIR (default: this one), timed so that two
+    commits compare on one card: run it for each, in turns (parent, change,
+    change, parent), in one call. Each run uses its own checkout's
+    kernels, wrappers and media. Prints wave 1 of the flagship, fire, 512^3
+    and 1920x1080 cells packed and dense (time_wave_cells) with a SHA-1 of
+    each film (equal films across commits have equal digests), the record
+    and replay kernels' device times on bench.py's density step, packed and
+    dense (CUPTI, kernel_device_ms of 5), and the three train cells (phase 9
+    (d)), then one JSON line. Works for any commit of the port that has the
+    gradient path.
     """
+    import hashlib
+
+    import numpy as np
     import torch
 
     repo_dir = os.path.abspath(repo_dir)
     check(torch.cuda.is_available(), "CUDA is not available")
     sys.path.insert(0, repo_dir)
+    from volume_path_tracer_tpu_torch.diff import inverse as inv
     from volume_path_tracer_tpu_torch.render import megakernel as mk
 
     check(os.path.dirname(mk.__file__).startswith(repo_dir), f"the port was imported from {mk.__file__}")
     dev = torch.device("cuda", 0)
     card = gpu_name_and_limit()
-    print(f"train comparison of {repo_dir} on {card}", flush=True)
+    print(f"comparison of {repo_dir} on {card}", flush=True)
     t0 = time.perf_counter()
     mk.build()
     print(f"build_s {time.perf_counter() - t0:.2f}")
+    cells = wave_cells(dev)
+    waves, films = time_wave_cells(cells, card, "compare")
+    digests = {f"{cell} {'packed' if pack else 'dense'}": hashlib.sha1(f.cpu().numpy().tobytes()).hexdigest()[:16]
+               for (cell, pack), f in films.items()}
+    print("film digests: " + json.dumps(digests), flush=True)
+    del cells, films
     med, fog_base, wdas, fog_cam, coords, tpids, rays = density_step(dev)
-    import numpy as np
-
+    dense_med = inv.medium_with_params(fog_base, inv.OptimizableGrids(inv.param_from_density(
+        fog_base.density.data)), pack=False)
     g = torch.tensor(np.random.default_rng(2).uniform(0.2, 1.0, (rays[2].shape[0], 3)), dtype=torch.float32,
                      device=dev)
-    rec_ms, rep_ms = grad_kernel_times(mk, med, wdas, rays, g)
-    print(f"density step: record kernel {rec_ms:.4f} ms, replay kernel {rep_ms:.4f} ms (device time, mean of the kept records of 3 windows of 5 launches) "
-          f"on {card}", flush=True)
-    del med
-    _, summary = train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids)
-    print("train_compare: " + json.dumps({"repo": repo_dir, "record_ms": rec_ms, "replay_ms": rep_ms,
-                                          "cells": summary}))
+    grads = {}
+    for layout, m in (("packed", med), ("dense", dense_med)):
+        rec_ms, rep_ms = grad_kernel_times(mk, m, wdas, rays, g)
+        grads[layout] = {"record_ms": rec_ms, "replay_ms": rep_ms}
+        print(f"density step {layout}{f' ({dense_form(m)})' if layout == 'dense' else ''}: record kernel "
+              f"{rec_ms:.4f} ms, replay kernel {rep_ms:.4f} ms (device time, mean of the kept records of 3 "
+              f"windows of 5 launches) on {card}", flush=True)
+    del med, dense_med
+    _, train = train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids)
+    print("compare: " + json.dumps({"repo": repo_dir, "waves": waves, "density_step": grads, "cells": train,
+                                    "film_digests": digests}))
     record_summary()
     return 0
 
@@ -1055,7 +1203,7 @@ def main(only_train=False):
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from volume_path_tracer_tpu_torch.grids.grid import dense_grid_from_array
+    from volume_path_tracer_tpu_torch.grids.grid import dense_grid_from_array, with_padded_copy
     from volume_path_tracer_tpu_torch.grids.procedural import fire_plume, fog_sphere
     from volume_path_tracer_tpu_torch.models.camera import Camera
     from volume_path_tracer_tpu_torch.models.medium import Medium
@@ -1076,17 +1224,29 @@ def main(only_train=False):
     os.makedirs(OUT_DIR, exist_ok=True)
 
     phase("2 build")
+    # Both sources at once, one compiler each: nvcc for the lane kernels,
+    # g++ for the .nvdb core that phase 6 uses.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from volume_path_tracer_tpu_torch.grids import native
+
     t0 = time.perf_counter()
-    lib_path = mk.build()
-    mk._library()
-    print(f"build_s {time.perf_counter() - t0:.2f}  ({os.path.basename(lib_path)})")
+    with ThreadPoolExecutor(2) as pool:
+        nvdb_core = pool.submit(native.available)
+        lib_path = mk.build()
+        mk._library()
+        nvcc_s = time.perf_counter() - t0
+        nvdb_core.result()
+    print(f"build_s {time.perf_counter() - t0:.2f}  ({os.path.basename(lib_path)} {nvcc_s:.2f} s, the .nvdb core "
+          f"{'built' if native.available() else 'not built'})")
     with open(lib_path + ".log") as f:
         for line in f:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip()[:160])
-    for dense in (False, True):
-        occ = mk.occupancy(dev, dense)
-        print(f"occupancy ({'dense' if dense else 'packed'}): resident blocks of {occ.threads} threads per SM on "
+    for form, dense, padded in (("packed", False, False), ("dense, own arrays", True, False),
+                                ("dense, padded copies", True, True)):
+        occ = mk.occupancy(dev, dense, padded)
+        print(f"occupancy ({form}): resident blocks of {occ.threads} threads per SM on "
               f"{occ.sms} SMs: render_wave_kernel {occ.wave / occ.sms:.2f}, trace_lanes_kernel "
               f"{occ.trace / occ.sms:.2f}, its record instantiation {occ.record / occ.sms:.2f}, replay_lanes_kernel "
               f"{occ.replay / occ.sms:.2f}")
@@ -1127,21 +1287,28 @@ def main(only_train=False):
           f"int fields equal where floats agree: {bool(i_ok[f_ok].all())}, max_abs_err {one_step_max_abs:.3e}")
     check(one_step_agree >= 0.99, f"one-step agreement {one_step_agree} < 0.99")
     check(bool(i_ok[f_ok].all()), "integer fields differ where the float fields agree")
-    # the same step by the dense instantiation, on the same medium unpacked
+    # the same step by the dense instantiations, on the same medium unpacked:
+    # the padded copies (the form this grid takes on the card), and the
+    # grids' own arrays (the form of a grid too large for L2)
     flag_dense = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=False)
-    dkf, dki = mk.trace_lanes(flag_dense, flag.params, None, sf_mid, si_mid, pids, streams, 1)
+    flag_own = without_copies(flag_dense)
+    check(dense_form(flag_dense) == "padded", "the unpacked flagship medium keeps no padded copies on the card")
     dpf, dpi = mk.trace_lanes_plain(flag_dense, flag.params, None, sf_mid, si_mid, pids, streams, 1)
-    torch.cuda.synchronize()
-    df_ok = torch.isclose(dkf, dpf, rtol=1e-5, atol=1e-6).all(0)
-    dense_step_agree = float(df_ok.float().mean())
-    dense_step_max_abs = float((dkf - dpf).abs().max())
-    dense_step_same = bool(torch.equal(dkf, kf) and torch.equal(dki, ki))
-    print(f"one step, dense instantiation: agree {dense_step_agree:.6f} with its plain version, max_abs_err "
-          f"{dense_step_max_abs:.3e}; bitwise equal to the packed kernel's step: {dense_step_same}; plain "
-          f"unpacked bitwise equal to plain packed: {bool(torch.equal(dpf, pf) and torch.equal(dpi, pi))}")
-    check(dense_step_agree >= 0.99, f"dense one-step agreement {dense_step_agree} < 0.99")
-    check(bool((dki == dpi).all(0)[df_ok].all()), "dense: integer fields differ where the float fields agree")
-    check(dense_step_same, "the dense step differs from the packed step on the same medium")
+    dense_step_max_abs = {}
+    for form, dmed in (("padded", flag_dense), ("own", flag_own)):
+        dkf, dki = mk.trace_lanes(dmed, flag.params, None, sf_mid, si_mid, pids, streams, 1)
+        torch.cuda.synchronize()
+        df_ok = torch.isclose(dkf, dpf, rtol=1e-5, atol=1e-6).all(0)
+        dense_step_agree = float(df_ok.float().mean())
+        dense_step_max_abs[form] = float((dkf - dpf).abs().max())
+        dense_step_same = bool(torch.equal(dkf, kf) and torch.equal(dki, ki))
+        print(f"one step, dense instantiation ({form} arrays): agree {dense_step_agree:.6f} with its plain version, "
+              f"max_abs_err {dense_step_max_abs[form]:.3e}; bitwise equal to the packed kernel's step: "
+              f"{dense_step_same}; plain unpacked bitwise equal to plain packed: "
+              f"{bool(torch.equal(dpf, pf) and torch.equal(dpi, pi))}")
+        check(dense_step_agree >= 0.99, f"dense ({form}) one-step agreement {dense_step_agree} < 0.99")
+        check(bool((dki == dpi).all(0)[df_ok].all()), f"dense ({form}): integer fields differ where the float fields agree")
+        check(dense_step_same, f"the dense ({form}) step differs from the packed step on the same medium")
 
     # (b) full traces on the three scenes of tests/test_megakernel.py:
     # trace_lanes on a ray batch, render_wave through a small camera
@@ -1168,9 +1335,14 @@ def main(only_train=False):
         s = vrng.mix_stream(3, 1)
         cam = Camera.from_parameters(cam_p, (SW, SH))
         packed = None
-        for pack in (True, False):
+        for form in ("packed", "padded", "own"):
+            pack = form == "packed"
             med = Medium.from_grids(*grids, pack=pack)
-            layout = f"{med.density_rows.shape[1]}-wide rows" if pack else "unpacked, dense instantiation"
+            if form == "own":
+                med = without_copies(med)
+            if not pack:
+                check(dense_form(med) == form, f"{name}: the unpacked medium's arrays are not {form}")
+            layout = f"{med.density_rows.shape[1]}-wide rows" if pack else f"unpacked, dense instantiation, {form} arrays"
             L_k, _, nc_k = mk.trace_rays_fused(med, prm, bbt, o, d, lp, s)
             sfa, sia = mk.pack_state(integ.init_state(med, o, d, prm))
             sfp, sip = mk.trace_lanes_plain(med, prm, bbt, sfa, sia, lp, integ.lane_streams(s, N, dev),
@@ -1193,11 +1365,11 @@ def main(only_train=False):
             # instead, another arithmetic: the line says what it found.
             same = bool(torch.equal(L_k, packed[0])), bool(torch.equal(films[0], packed[1]))
             close = float(torch.isclose(films[0], packed[1], rtol=1e-4, atol=1e-5).all(-1).float().mean())
-            print(f"dense against packed kernel, {name}: trace_lanes bitwise equal {same[0]}, render_wave "
-                  f"bitwise equal {same[1]}, pixels close {close:.4f}")
+            print(f"dense ({form} arrays) against packed kernel, {name}: trace_lanes bitwise equal {same[0]}, "
+                  f"render_wave bitwise equal {same[1]}, pixels close {close:.4f}")
             if name != "fire_plume_16wide":
-                check(all(same), f"{name}: the dense kernels differ from the packed kernels")
-            check(close > 0.95, f"{name}: dense and packed films differ on {1 - close:.3f} of the pixels")
+                check(all(same), f"{name}: the dense kernels ({form} arrays) differ from the packed kernels")
+            check(close > 0.95, f"{name}: dense ({form}) and packed films differ on {1 - close:.3f} of the pixels")
     del packed, films, med
 
     # ------------------------------------------------------------------
@@ -1328,79 +1500,99 @@ def main(only_train=False):
     # ---- the same medium unpacked: the dense instantiations ----
     # One whole wave by each dense kernel against its plain version (the
     # statistic the packed kernels are held to) and against the packed
-    # kernel's result (the same corners in the same order: bitwise).
+    # kernel's result (the same corners in the same order: bitwise), in both
+    # forms: the padded copies (this grid's form on the card) and the grids'
+    # own arrays (the form of a grid too large for L2).
     dflag = Scene.from_config(flag_cfg, flag_dense, max_iters=FLAGSHIP_MAX_ITERS)
     dkw = wave_args(dflag, 1)
-    film_d = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
-    it_d, nc_d = mk.render_wave(film=film_d, pixels=range(0, n), **dkw)
-    torch.cuda.synchronize()
-    film_dp = torch.zeros_like(film_d)
+    film_dp = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
     t0 = time.perf_counter()
     it_dp, nc_dp = mk.render_wave_plain(film=film_dp, pixels=range(0, n), **dkw)
     torch.cuda.synchronize()
     dense_wave_plain_ms = (time.perf_counter() - t0) * 1e3
-    film_statistic(film_d, int(nc_d), film_dp, int(nc_dp),
-                   f"render_wave flagship wave, dense instantiation (longest lane {int(it_d)} vs {int(it_dp)})")
-    dense_wave_max_abs = float((film_d - film_dp).abs().max())
-    dense_film_same = bool(torch.equal(film_d, film_k))
-    print(f"render_wave flagship wave: dense film bitwise equal to the packed kernel's {dense_film_same}; "
-          f"plain unpacked bitwise equal to plain packed {bool(torch.equal(film_dp, film_p))}; max_abs_err "
-          f"against the plain version {dense_wave_max_abs:.3e}; plain version {dense_wave_plain_ms:.1f} ms")
-    check(dense_film_same, "the dense wave kernel's flagship film differs from the packed kernel's")
-    dense_wave_rep = wave_kernel_report(dflag, "flagship, dense instantiation", card)
-
-    def dense_kernel_wave():
-        return mk.trace_lanes(flag_dense, flag.params, None, sf0, si0, pids, streams, FLAGSHIP_MAX_ITERS)
-
-    sf_d, si_d = dense_kernel_wave()
-    dense_wrapper_ms = cuda_ms(dense_kernel_wave, 10)
     t0 = time.perf_counter()
     sf_dp, si_dp = mk.trace_lanes_plain(flag_dense, flag.params, None, sf0, si0, pids, streams,
                                         FLAGSHIP_MAX_ITERS)
     torch.cuda.synchronize()
     dense_plain_ms = (time.perf_counter() - t0) * 1e3
-    trace_statistic(sf_d[10:13].T.cpu().numpy(), int((si_d[1] != integ.DONE).sum()),
-                    sf_dp[10:13].T.cpu().numpy(), int((si_dp[1] != integ.DONE).sum()),
-                    f"trace_lanes flagship wave, dense instantiation ({n} lanes)")
-    check(bool(torch.equal(sf_d, sf_k) and torch.equal(si_d, si_k)),
-          "the dense trace_lanes kernel's flagship state differs from the packed kernel's")
-    dense_kernel_ms = kernel_device_ms(dense_kernel_wave, 10, "trace_lanes_kernel")
-    dense_bound_ms, dense_bound_by = trace_lanes_report(flag_dense, si_d, dense_kernel_ms, dense_wrapper_ms,
-                                                        dense_plain_ms, "unpacked")
-    # the unpacked main path (render -> tonemap -> PNG) and ray-batch path
+    print(f"flagship wave, plain versions on the unpacked medium: render_wave_plain {dense_wave_plain_ms:.1f} ms "
+          f"(bitwise equal to plain packed {bool(torch.equal(film_dp, film_p))}), trace_lanes_plain "
+          f"{dense_plain_ms:.1f} ms")
+    dense = {}
+    for form, dmed in (("padded", flag_dense), ("own", flag_own)):
+        dsc = dflag if form == "padded" else Scene.from_config(flag_cfg, dmed, max_iters=FLAGSHIP_MAX_ITERS)
+        film_d = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+        it_d, nc_d = mk.render_wave(film=film_d, pixels=range(0, n), **wave_args(dsc, 1))
+        torch.cuda.synchronize()
+        film_statistic(film_d, int(nc_d), film_dp, int(nc_dp), f"render_wave flagship wave, dense instantiation "
+                       f"({form} arrays; longest lane {int(it_d)} vs {int(it_dp)})")
+        wave_max_abs_d = float((film_d - film_dp).abs().max())
+        film_same = bool(torch.equal(film_d, film_k))
+        print(f"render_wave flagship wave ({form} arrays): dense film bitwise equal to the packed kernel's "
+              f"{film_same}; max_abs_err against the plain version {wave_max_abs_d:.3e}")
+        check(film_same, f"the dense wave kernel's flagship film ({form} arrays) differs from the packed kernel's")
+        wave_rep_d = wave_kernel_report(dsc, f"flagship, dense instantiation, {form} arrays", card)
+        dense_beside_packed(wave_rep, wave_rep_d, f"flagship ({form} arrays)", card)
+
+        def dense_kernel_wave():
+            return mk.trace_lanes(dmed, flag.params, None, sf0, si0, pids, streams, FLAGSHIP_MAX_ITERS)
+
+        sf_d, si_d = dense_kernel_wave()
+        wrapper_ms = cuda_ms(dense_kernel_wave, 10)
+        trace_statistic(sf_d[10:13].T.cpu().numpy(), int((si_d[1] != integ.DONE).sum()),
+                        sf_dp[10:13].T.cpu().numpy(), int((si_dp[1] != integ.DONE).sum()),
+                        f"trace_lanes flagship wave, dense instantiation ({form} arrays, {n} lanes)")
+        check(bool(torch.equal(sf_d, sf_k) and torch.equal(si_d, si_k)),
+              f"the dense trace_lanes kernel's flagship state ({form} arrays) differs from the packed kernel's")
+        trace_ms = kernel_device_ms(dense_kernel_wave, 10, "trace_lanes_kernel")
+        t_bound_ms, t_bound_by = trace_lanes_report(dmed, si_d, trace_ms, wrapper_ms, dense_plain_ms,
+                                                    f"unpacked, {form} arrays")
+        # the unpacked ray-batch path
+        reset_launch_counts(mk)
+        d_contrib, _, d_nc = render_rays_wave(dmed, flag.params, flag.camera, None, coords, pids, flag.seed, 1,
+                                              flag.use_jitter, flag.camera.imaging_ratio)
+        trace_launches_d = mk.PADDED_LAUNCHES if form == "padded" else mk.DENSE_LAUNCHES - mk.PADDED_LAUNCHES
+        check(trace_launches_d == 1 and mk.DENSE_LAUNCHES == 1 and mk.LAUNCHES == 1 and mk.PLAIN_LAUNCHES == 0,
+              f"render_rays_wave on the unpacked medium did not go through the dense trace_lanes_kernel "
+              f"({form} arrays)")
+        film_statistic(d_contrib, int(d_nc), film_d, int(nc_d), f"render_rays_wave against render_wave, unpacked, "
+                       f"{form} arrays")
+        dense[form] = dict(wave_rep=wave_rep_d, wave_max_abs=wave_max_abs_d, trace_ms=trace_ms,
+                           trace_bound=(t_bound_ms, t_bound_by), trace_launches=trace_launches_d,
+                           step_max_abs=dense_step_max_abs[form])
+        del film_d, sf_d, si_d, d_contrib, dsc
+    print(f"flagship dense wave kernel, padded copies | own arrays: {dense['padded']['wave_rep']['ms']:.4f} | "
+          f"{dense['own']['wave_rep']['ms']:.4f} ms (padded / own "
+          f"{dense['padded']['wave_rep']['ms'] / dense['own']['wave_rep']['ms']:.3f}) on {card}")
+    # the unpacked main path (render -> tonemap -> PNG)
     _, dflag_rays_s, dncap, dflag_counts = main_path(dflag, 2, os.path.join(OUT_DIR, "flagship_unpacked.png"),
                                                      "flagship unpacked", card)
     check(dncap == 0, f"{dncap} unpacked flagship rays truncated at the step cap")
-    reset_launch_counts(mk)
-    d_contrib, _, d_nc = render_rays_wave(flag_dense, flag.params, flag.camera, None, coords, pids, flag.seed, 1,
-                                          flag.use_jitter, flag.camera.imaging_ratio)
-    dense_trace_launches = mk.DENSE_LAUNCHES
-    check(dense_trace_launches == 1 and mk.LAUNCHES == 1 and mk.PLAIN_LAUNCHES == 0,
-          "render_rays_wave on the unpacked medium did not go through the dense trace_lanes_kernel")
-    film_statistic(d_contrib, int(d_nc), film_d, int(nc_d), "render_rays_wave against render_wave, unpacked")
-    del film_k, film_p, film_d, film_dp, sf_k, si_k, sf_p, si_p, sf_d, si_d, sf_dp, si_dp, d_contrib, dflag
+    del film_k, film_p, film_dp, sf_k, si_k, sf_p, si_p, sf_dp, si_dp, dflag
 
     # ------------------------------------------------------------------
     phase("5 fire")
-    del flag, flag_med, flag_dense
+    del flag, flag_med, flag_dense, flag_own
     torch.cuda.empty_cache()
     fire_cfg = loads_configuration(json.dumps(FIRE_SCENE))
     f_dens, f_temp = fire_plume(height=96, radius=28.0)
     f_temp_al = dense_grid_from_array(f_temp.data, f_temp.origin_ijk, f_temp.voxel_size, (0.0, 0.0, 0.0))
-    fire_rays_s = {}
+    fire_rays_s, fire_reps = {}, {}
     fire_film_8 = None
     for width, temp_grid in ((8, f_temp), (16, f_temp_al), ("unpacked", f_temp)):
         med = Medium.from_grids(f_dens, temp_grid, pack=width != "unpacked")
         label = "fire unpacked" if width == "unpacked" else f"fire {width}-wide rows"
         if width == "unpacked":
             check(med.density_rows is None and med.temperature_rows is None, "the unpacked fire medium has tables")
+            check(dense_form(med) == "padded" and med.temperature.padded is not None,
+                  "the unpacked fire medium keeps no padded copies on the card")
         else:
             check(med.density_rows.shape[1] == width, f"fire medium has {med.density_rows.shape[1]}-wide rows")
         sc = Scene.from_config(fire_cfg, med, max_iters=FIRE_MAX_ITERS)
         png = os.path.join(OUT_DIR, f"fire_{width}{'' if width == 'unpacked' else 'wide'}.png")
         render(sc, num_waves=1)  # warm-up: the blackbody table, first-call allocations
         times, fire_rays_s[width], _, _ = main_path(sc, 2, png, label, card)
-        wave_kernel_report(sc, label, card)
+        fire_reps[width] = wave_kernel_report(sc, label, card)
         if width == 16:
             profile_pass(sc, os.path.join(OUT_DIR, "fire_16wide_profiled.png"), min(times), "fire 16-wide")
         if width == 8:
@@ -1423,6 +1615,7 @@ def main(only_train=False):
             check(float(film_fk[..., :3].max()) > 0, "the dense emissive film is black")
             del film_fk, film_fp
         del med, sc
+    dense_beside_packed(fire_reps[8], fire_reps["unpacked"], "fire (8-wide rows)", card)
     del fire_film_8
     torch.cuda.empty_cache()
 
@@ -1448,6 +1641,7 @@ def main(only_train=False):
           f"build {build_s:.2f} s, table {tuple(cloud_med.density_rows.shape)} = "
           f"{cloud_med.density_rows.numel() * 4 / 1e9:.2f} GB, peak device memory {peak / 1e9:.2f} GB")
     cloud_rep = wave_kernel_report(cloud_scene, "big_cloud 512^3", card)
+    cloud_film = render_wave_image(cloud_scene, 1)  # for the dense kernel's film below
     del cloud_med, cloud_scene
     torch.cuda.empty_cache()
 
@@ -1493,24 +1687,46 @@ def main(only_train=False):
     os.remove(nvdb_path)
     del read_back, g, inside, cloud_np
 
-    # ---- the same cloud unpacked: 0.54 GB on the card instead of 4.33 GB ----
+    # ---- the same cloud unpacked: 0.54 GB on the card instead of 4.33 GB;
+    # too large for L2, so no padded copy ----
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     cloud_dense = Medium.from_grids(cloud, pack=False)
     torch.cuda.synchronize()
     dense_build_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() - before
+    check(dense_form(cloud_dense) == "own", "the unpacked 512^3 medium keeps a padded copy")
     dcloud_scene = Scene.from_config(cloud_cfg, cloud_dense, max_iters=FLAGSHIP_MAX_ITERS)
     _, dcloud_rays_s, dcloud_ncap, dcloud_counts = main_path(
         dcloud_scene, 2, os.path.join(OUT_DIR, "big_cloud_512_unpacked.png"), "big_cloud 512^3 unpacked", card)
     check(dcloud_ncap == 0, f"{dcloud_ncap} unpacked 512^3 rays truncated at max_iters {FLAGSHIP_MAX_ITERS}")
+    dcloud_own_launches = dcloud_counts["render_wave_dense"] - dcloud_counts["render_wave_padded"]
     dpeak = torch.cuda.max_memory_allocated()
     dcloud_rep = wave_kernel_report(dcloud_scene, "big_cloud 512^3 unpacked", card)
+    # One whole 512^3 wave by the dense kernel against the packed kernel's:
+    # the same corners in the same order, bitwise.
+    dcloud_film = render_wave_image(dcloud_scene, 1)
+    cloud_same = bool(torch.equal(dcloud_film, cloud_film))
     print(f"big_cloud 512^3 unpacked: medium build {dense_build_s:.2f} s, density array "
-          f"{cloud_dense.density.data.numel() * 4 / 1e9:.2f} GB, peak device memory {dpeak / 1e9:.2f} GB "
-          f"(packed: {peak / 1e9:.2f} GB); rays/s {dcloud_rays_s:.1f} (packed: {cloud_rays_s:.1f}); wave kernel "
-          f"{dcloud_rep['ms']:.4f} ms for {dcloud_rep['lane_steps']} lane-steps (packed: {cloud_rep['ms']:.4f} ms "
-          f"for {cloud_rep['lane_steps']}) on {card}")
-    del cloud, cloud_dense, dcloud_scene
+          f"{cloud_dense.density.data.numel() * 4 / 1e9:.2f} GB (no padded copy), medium resident "
+          f"{resident / 1e9:.2f} GB, peak device memory {dpeak / 1e9:.2f} GB "
+          f"(packed: {peak / 1e9:.2f} GB); rays/s {dcloud_rays_s:.1f} (packed: {cloud_rays_s:.1f}); wave 1's dense "
+          f"film bitwise equal to the packed kernel's {cloud_same} on {card}")
+    check(cloud_same, "the dense wave kernel's 512^3 film differs from the packed kernel's")
+    check(dpeak <= 1.9e9, f"the unpacked 512^3 render peaked at {dpeak / 1e9:.2f} GB of device memory, over 1.9 GB")
+    dense_beside_packed(cloud_rep, dcloud_rep, "big_cloud 512^3", card)
+    # The other side of the choice: the same wave from a padded copy, which
+    # this grid does not get (it does not fit in L2)
+    cloud_padded = dataclasses.replace(cloud_dense, density=with_padded_copy(cloud_dense.density))
+    pcloud_scene = Scene.from_config(cloud_cfg, cloud_padded, max_iters=FLAGSHIP_MAX_ITERS)
+    pcloud_same = bool(torch.equal(render_wave_image(pcloud_scene, 1), cloud_film))
+    pcloud_rep = wave_kernel_report(pcloud_scene, "big_cloud 512^3 unpacked, padded copy", card)
+    print(f"big_cloud 512^3 dense wave kernel, own arrays | padded copy: {dcloud_rep['ms']:.4f} | "
+          f"{pcloud_rep['ms']:.4f} ms (padded / own {pcloud_rep['ms'] / dcloud_rep['ms']:.3f}); padded film bitwise "
+          f"equal to the packed kernel's {pcloud_same} on {card}")
+    check(pcloud_same, "the dense wave kernel's 512^3 film from a padded copy differs from the packed kernel's")
+    del cloud, cloud_dense, dcloud_scene, cloud_film, dcloud_film, cloud_padded, pcloud_scene
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -1596,17 +1812,29 @@ def main(only_train=False):
     check(mk.WAVE_LAUNCHES > 0 and mk.PLAIN_WAVE_LAUNCHES == 0 and mk.PLAIN_LAUNCHES == 0,
           "cli render did not go through the wave kernel")
 
-    # --profile: the trace is written and names the wave kernel
+    # --profile: the trace is written and names the wave kernel. CUPTI now
+    # and then hands a profiler session none of its kernel records (seen on
+    # the H100: a trace with the host's events and no kernel, while the
+    # launch counters show the kernel ran; kernel_device_ms takes such a
+    # window again): a trace without the kernel is taken again, at most
+    # three times in all, and every attempt is printed.
     prof_dir = os.path.join(OUT_DIR, "cli_profile")
     trace_path = os.path.join(prof_dir, "trace.json")
-    if os.path.exists(trace_path):
-        os.remove(trace_path)
-    rc = cli.main([cfg_path, png, "--procedural", "plume", "--waves", "2", "--profile", prof_dir])
-    check(rc == 0 and os.path.exists(trace_path), "cli --profile wrote no trace")
-    with open(trace_path) as f:
-        trace_text = f.read()
-    print(f"cli --profile: {trace_path} {len(trace_text) / 1e3:.1f} kB, names render_wave_kernel "
-          f"{trace_text.count('render_wave_kernel')} times")
+    for attempt in range(1, 4):
+        if os.path.exists(trace_path):
+            os.remove(trace_path)
+        reset_launch_counts(mk)
+        rc = cli.main([cfg_path, png, "--procedural", "plume", "--waves", "2", "--profile", prof_dir])
+        check(rc == 0 and os.path.exists(trace_path), "cli --profile wrote no trace")
+        check(mk.WAVE_LAUNCHES > 0, "cli --profile did not go through the wave kernel")
+        with open(trace_path) as f:
+            trace_text = f.read()
+        named = trace_text.count("render_wave_kernel")
+        print(f"cli --profile, attempt {attempt}: {trace_path} {len(trace_text) / 1e3:.1f} kB, names "
+              f"render_wave_kernel {named} times ({mk.WAVE_LAUNCHES} launches), cudaLaunchKernel "
+              f"{trace_text.count('cudaLaunchKernel')} times")
+        if named:
+            break
     check("render_wave_kernel" in trace_text, "the --profile trace does not name render_wave_kernel")
     del trace_text
 
@@ -1616,8 +1844,10 @@ def main(only_train=False):
         "render_wave": flag_counts["render_wave"], "render_wave_plain": flag_counts["render_wave_plain"],
         "trace_lanes": trace_launches, "trace_lanes_plain": trace_plain,
         "render_wave_from_nvdb_scenes": nvdb_launches,
-        "render_wave_dense": dflag_counts["render_wave_dense"] + dcloud_counts["render_wave_dense"],
-        "trace_lanes_dense": dense_trace_launches}))
+        "render_wave_dense_padded": dflag_counts["render_wave_padded"],
+        "render_wave_dense_own": dcloud_own_launches,
+        "trace_lanes_dense_padded": dense["padded"]["trace_launches"],
+        "trace_lanes_dense_own": dense["own"]["trace_launches"]}))
     print(f"flagship_rays_per_s {flag_rays_s:.1f} fire_8wide_rays_per_s {fire_rays_s[8]:.1f} "
           f"fire_16wide_rays_per_s {fire_rays_s[16]:.1f} big_cloud_512_rays_per_s {cloud_rays_s:.1f} "
           f"flagship_unpacked_rays_per_s {dflag_rays_s:.1f} fire_unpacked_rays_per_s "
@@ -1639,16 +1869,21 @@ def main(only_train=False):
          "launches": trace_launches, "max_abs_err": one_step_max_abs, "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
         # The dense instantiations of the same two kernels (a medium without
-        # the fused table): launches on the unpacked main paths (flagship
-        # and 512^3 renders; the unpacked ray-batch path).
-        {"name": "render_wave_dense", "route": "cuda", "source": source, "replaces": replaces,
-         "launches": dflag_counts["render_wave_dense"] + dcloud_counts["render_wave_dense"],
-         "max_abs_err": dense_wave_max_abs, "ms": dense_wave_rep["ms"], "plain_ms": dense_wave_plain_ms,
-         "bound_ms": dense_wave_rep["bound_ms"], "bound_by": dense_wave_rep["bound_by"], "library_ms": None},
-        {"name": "trace_lanes_dense", "route": "cuda", "source": source, "replaces": replaces,
-         "launches": dense_trace_launches, "max_abs_err": dense_step_max_abs, "ms": dense_kernel_ms,
-         "plain_ms": dense_plain_ms, "bound_ms": dense_bound_ms, "bound_by": dense_bound_by,
-         "library_ms": None},
+        # the fused table), reading the padded copies (grids that fit in L2)
+        # or the grids' own arrays: launches on the unpacked main paths (the
+        # flagship render and ray batch read the copies, the 512^3 render
+        # the own arrays); times, errors and bounds on the flagship wave.
+        *({"name": f"render_wave_dense{suffix}", "route": "cuda", "source": source, "replaces": replaces,
+           "launches": dflag_counts["render_wave_padded"] if form == "padded" else dcloud_own_launches,
+           "max_abs_err": dense[form]["wave_max_abs"], "ms": dense[form]["wave_rep"]["ms"],
+           "plain_ms": dense_wave_plain_ms, "bound_ms": dense[form]["wave_rep"]["bound_ms"],
+           "bound_by": dense[form]["wave_rep"]["bound_by"], "library_ms": None}
+          for form, suffix in (("padded", ""), ("own", "_own"))),
+        *({"name": f"trace_lanes_dense{suffix}", "route": "cuda", "source": source, "replaces": replaces,
+           "launches": dense[form]["trace_launches"], "max_abs_err": dense[form]["step_max_abs"],
+           "ms": dense[form]["trace_ms"], "plain_ms": dense_plain_ms, "bound_ms": dense[form]["trace_bound"][0],
+           "bound_by": dense[form]["trace_bound"][1], "library_ms": None}
+          for form, suffix in (("padded", ""), ("own", "_own"))),
         # The gradient path (phase 9): launches in bench.py's three train
         # cells, times and bounds on the full density step.
         *train_kernels,
@@ -1665,8 +1900,8 @@ def main(only_train=False):
 # it from the source's text.
 SCATTER_LINE = "  float4* p = reinterpret_cast<float4*>(table + (size_t)row * 8);"
 SCATTER_VARIANTS = {
-    "scatter=one_row_per_warp": (SCATTER_LINE, "  float4* p = reinterpret_cast<float4*>(table + (size_t)"
-                                               "((((size_t)blockIdx.x * THREADS + threadIdx.x) >> 5) & 1023) * 8);"),
+    "scatter=one_row_per_warp": [(SCATTER_LINE, "  float4* p = reinterpret_cast<float4*>(table + (size_t)"
+                                                "((((size_t)blockIdx.x * THREADS + threadIdx.x) >> 5) & 1023) * 8);")],
 }
 # Resident blocks a gradient kernel is compiled for (NAME=N: its
 # __launch_bounds__ patched from MIN_BLOCKS to N; the record's only in its
@@ -1679,59 +1914,11 @@ BOUNDS_VARIANTS = {
 }
 
 
-def candidate_orders(mk, ctr):
-    """Queue orders for the replay to time against each other (None: index
-    order): the record's counters sorted lane by lane, longest first, and
-    groups of g consecutive lanes (neighbouring pixels of one sample wave,
-    coherent rays) sorted by their longest lane (mk.longest_first)."""
-    out = {"index order": None, "longest first": mk.longest_first(ctr, group=1)}
-    for g in (128, 256, 512, 1024, 2048):
-        out[f"groups of {g}"] = mk.longest_first(ctr, group=g)
-    return out
-
-
-def variants(specs):
-    """python3 chip_smoke.py --variants SPEC [SPEC ...]
-
-    Times variants of the kernel source against csrc/trace_lanes.cu in turns
-    within one process (source, variants, variants reversed, source), so that
-    two versions are compared on one card. SPEC is the path of a .cu file
-    with the same forward C interface, NAME=VALUE[,NAME=VALUE...] for a copy
-    of the source with those `constexpr int NAME = ...;` lines changed (or,
-    for a NAME of BOUNDS_VARIANTS, that kernel's __launch_bounds__), or
-    one of SCATTER_VARIANTS. Prints, for each turn: the registers,
-    render_wave_kernel's device ms on the flagship wave, SIMT efficiency as
-    issued, the idle tail, the same for one wave at 1920x1080 (where every
-    warp refills many times), trace_lanes_kernel's ms at max_steps 16, 64 and
-    309, and how the film compares with the source's; for a source with this
-    checkout's record / replay interface also the record and replay
-    kernels' ms on bench.py's density step (the replay longest first and in
-    index order), their SIMT efficiency and idle tail, and each lane's
-    replayed <g, L> and the gradient against the source's.
-    """
+def variant_sources(specs, text, original, var_dir):
+    """[(name, path)] of the sources --variants times: the source itself,
+    then one per SPEC (see variants())."""
     import re
 
-    import numpy as np
-    import torch
-
-    sys.path.insert(0, REPO)
-    from volume_path_tracer_tpu_torch.grids.procedural import fog_sphere
-    from volume_path_tracer_tpu_torch.models.medium import Medium
-    from volume_path_tracer_tpu_torch.render import integrator as integ
-    from volume_path_tracer_tpu_torch.render import megakernel as mk
-    from volume_path_tracer_tpu_torch.render.renderer import Scene, pixel_coords
-    from volume_path_tracer_tpu_torch.utils import rng as vrng
-    from volume_path_tracer_tpu_torch.utils.config import loads_configuration
-
-    check(torch.cuda.is_available(), "CUDA is not available")
-    dev = torch.device("cuda", 0)
-    card = gpu_name_and_limit()
-    print(card)
-    original = mk.SOURCE
-    with open(original) as f:
-        text = f.read()
-    var_dir = os.path.join(mk.BUILD_DIR, "variants")
-    os.makedirs(var_dir, exist_ok=True)
     sources = [("source", original)]
     for spec in specs:
         if os.path.isfile(spec):
@@ -1739,9 +1926,9 @@ def variants(specs):
             continue
         changed = text
         if spec in SCATTER_VARIANTS:
-            old, new = SCATTER_VARIANTS[spec]
-            check(changed.count(old) == 1, f"{spec}: the scatter's lines are not in {original}")
-            changed = changed.replace(old, new)
+            for old, new in SCATTER_VARIANTS[spec]:
+                check(changed.count(old) == 1, f"{spec}: the lines it changes are not in {original}")
+                changed = changed.replace(old, new)
         else:
             for item in spec.split(","):
                 name, value = item.split("=")
@@ -1756,102 +1943,93 @@ def variants(specs):
         with open(path, "w") as f:
             f.write(changed)
         sources.append((spec, path))
+    return sources
 
-    flag_med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0))
-    flag = Scene.from_config(loads_configuration(json.dumps(WDAS_SCENE)), flag_med, max_iters=FLAGSHIP_MAX_ITERS)
-    W, H = flag.width, flag.height
-    n = W * H
-    pids = torch.arange(n, dtype=torch.int32, device=dev)
-    stream = vrng.mix_stream(flag.seed, 1)
-    u_jit = vrng.counter_uniforms(pids, stream, mk.JITTER_COUNTER, 2)
-    o_w, d_w = flag.camera.generate_rays(torch.from_numpy(pixel_coords(W, H)).to(dev), u_jit * 0.5)
-    sf0, si0 = mk.pack_state(integ.init_state(flag_med, o_w, d_w, flag.params))
-    streams = integ.lane_streams(stream, n, dev)
-    kw = wave_args(flag, 1)
-    hd = Scene.from_config(loads_configuration(json.dumps(HD_SCENE)), flag_med, max_iters=FLAGSHIP_MAX_ITERS)
-    hd_kw = wave_args(hd, 1)
-    hd_film = torch.zeros((hd.height, hd.width, 4), dtype=torch.float32, device=dev)
-    hd_n = hd.width * hd.height
-    # the density step, for sources with this checkout's gradient interface
-    med, fog_base, wdas, _, _, _, rays = density_step(dev)
+
+def variants(specs):
+    """python3 chip_smoke.py --variants SPEC [SPEC ...]
+
+    Times variants of the kernel source against csrc/trace_lanes.cu in turns
+    within one process (source, variants, variants reversed, source), so
+    that two versions of the source are compared on one card, on the same
+    media. SPEC is the path of a .cu file with the same C interface and
+    array forms (a variant written elsewhere; to compare commits, whose
+    media may differ, use --compare), NAME=VALUE[,NAME=VALUE...] for a copy
+    of the source with those `constexpr int NAME = ...;` lines changed (or,
+    for a NAME of BOUNDS_VARIANTS, that kernel's __launch_bounds__), or one
+    of SCATTER_VARIANTS. All sources are built first, one nvcc each, all at
+    once. Each turn prints the registers and spills of the production
+    kernels; the cells of wave_cells side by side (time_wave_cells), with
+    each film against the source's; and on bench.py's density step the
+    record and replay kernels (the replay in the longest-first order),
+    packed and dense, with each lane's replayed <g, L> and the gradient
+    against the source's. Then one JSON line a turn.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
     from volume_path_tracer_tpu_torch.diff import inverse as inv
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
 
+    check(torch.cuda.is_available(), "CUDA is not available")
+    dev = torch.device("cuda", 0)
+    card = gpu_name_and_limit()
+    print(card)
+    original = mk.SOURCE
+    with open(original) as f:
+        text = f.read()
+    var_dir = os.path.join(mk.BUILD_DIR, "variants")
+    os.makedirs(var_dir, exist_ok=True)
+    sources = variant_sources(specs, text, original, var_dir)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(zip((n for n, _ in sources), pool.map(mk.build, [p for _, p in sources])))
+    print(f"built {len(sources)} sources at once in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    cells = wave_cells(dev)
+    med, fog_base, wdas, _, _, _, rays = density_step(dev)
     dense_med = inv.medium_with_params(fog_base, inv.OptimizableGrids(inv.param_from_density(
         fog_base.density.data)), pack=False)
+    print(f"cells ready at {time.perf_counter() - T_START:.1f} s", flush=True)
+
     n_step = rays[2].shape[0]
     g_step = torch.tensor(np.random.default_rng(2).uniform(0.2, 1.0, (n_step, 3)), dtype=torch.float32, device=dev)
-    step_args = (med, wdas, None, *rays)
-    reference = grad_reference = None
-    for name, path in sources + sources[::-1]:
+    film_reference, grad_reference = {}, {}
+    for turn, (name, path) in enumerate(sources + sources[::-1]):
         mk.SOURCE, mk._lib = path, None
-        lib_path = mk.build()
-        with open(lib_path + ".log") as f:
+        mk._library()
+        with open(libs[name] + ".log") as f:
             report = ptxas_report(f.read())
-        regs = [str(r[0]) for r in report.values()]
-        spills = sum(r[1] + r[2] for r in report.values())
-        with open(path) as f:
-            grad = "const float* o_world" in f.read()
-        film = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
-        mk.render_wave(film=film, pixels=range(0, n), **kw)
-        if reference is None:
-            reference = film
-        close = float(torch.isclose(film, reference, rtol=1e-4, atol=1e-5).all(-1).float().mean())
-        scratch = torch.zeros_like(film)
-        ms = kernel_device_ms(lambda: mk.render_wave(film=scratch, pixels=range(0, n), **kw), 10,
-                              "render_wave_kernel")
-        tap = mk.new_row_tap(flag_med, flag.params, None)
-        stat = mk.launch_stat(dev)
-        mk.render_wave(film=scratch, pixels=range(0, n), row_tap=tap, stat=stat, **kw)
-        st = mk.read_launch_stat(stat)
-        sweep = [kernel_device_ms(
-            lambda: mk.trace_lanes(flag_med, flag.params, None, sf0, si0, pids, streams, k),
-            10, "trace_lanes_kernel") for k in (16, 64, 309)]
-        hd_ms = kernel_device_ms(lambda: mk.render_wave(film=hd_film, pixels=range(0, hd_n), **hd_kw), 5,
-                                 "render_wave_kernel")
-        stat.zero_()
-        mk.render_wave(film=hd_film, pixels=range(0, hd_n), row_tap=tap, stat=stat, **hd_kw)
-        hd_st = mk.read_launch_stat(stat)
-        line = (f"variant {name}: registers {'/'.join(regs)}, spill bytes {spills}; render_wave {ms:.4f} ms; "
-                f"SIMT efficiency "
-                f"{st['simt_efficiency']:.4f} on {st['warps']} warps; under half of the warps at work for "
-                f"{st['half_idle_share']:.3f}; at 1920x1080 {hd_ms:.4f} ms, SIMT efficiency "
-                f"{hd_st['simt_efficiency']:.4f}, under half at work for {hd_st['half_idle_share']:.3f}; "
-                f"trace_lanes ms at max_steps 16/64/309: "
-                + "/".join(f"{v:.4f}" for v in sweep)
-                + f"; film bitwise equal to the source's {bool(torch.equal(film, reference))}, pixels close {close:.4f}")
-        if grad:
-            L, tf, ctr = mk.record_lanes(*step_args, 16)
+        regs = {k: v for k, v in report.items() if k.startswith(("render_wave_kernel<false", "trace_lanes_kernel<false",
+                                                                 "replay_lanes_kernel<false"))}
+        print(f"variant {name} (turn {turn + 1}): registers, spill store and load bytes "
+              + ", ".join(f"{k} {v[0]} / {v[1]} / {v[2]}" for k, v in regs.items()), flush=True)
+        summary, films = time_wave_cells(cells, card, f"variant {name}")
+        for key, film in films.items():
+            film_reference.setdefault(key, film)
+        same = {f"{cell} {'packed' if pack else 'dense'}": bool(torch.equal(f, film_reference[cell, pack]))
+                for (cell, pack), f in films.items()}
+        print(f"variant {name}: films bitwise equal to the source's {json.dumps(same)}", flush=True)
+        del films
+        # the gradient kernels on bench.py's density step, packed and dense
+        for layout, m in (("packed", med), ("dense", dense_med)):
+            args = (m, wdas, None, *rays)
+            L, tf, ctr = mk.record_lanes(*args, 16)
             order = mk.longest_first(ctr)
-            _, _, acc, _ = mk.replay_lanes(*step_args, L, g_step, tf=tf, order=order, with_check=True)
-            dd = mk.replay_lanes(*step_args, L, g_step, tf=tf, order=order)[0]
-            if grad_reference is None:
-                grad_reference = (acc, dd)
-            rec_ms = kernel_device_ms(lambda: mk.record_lanes(*step_args, 16), 5, "trace_lanes_kernel")
-            rst, _ = measuring_launch(mk, med, wdas, dev, lambda tap, stat: mk.record_lanes(
-                *step_args, 16, row_tap=tap, stat=stat))
-            parts = [f"SIMT efficiency {rst['simt_efficiency']:.4f}, under half at work for "
-                     f"{rst['half_idle_share']:.3f}"]
-            for label, o_arg in candidate_orders(mk, ctr).items():
-                rep_ms = kernel_device_ms(lambda: mk.replay_lanes(*step_args, L, g_step, tf=tf, order=o_arg), 5,
-                                          "replay_lanes_kernel")
-                rst, _ = measuring_launch(mk, med, wdas, dev, lambda tap, stat: mk.replay_lanes(
-                    *step_args, L, g_step, tf=tf, order=o_arg, row_tap=tap, stat=stat))
-                parts.append(f"replay {label} {rep_ms:.4f} ms, SIMT efficiency {rst['simt_efficiency']:.4f}, "
-                             f"under half at work for {rst['half_idle_share']:.3f}")
-            line += (f"; density step: record {rec_ms:.4f} ms, " + ", ".join(parts)
-                     + f"; replayed <g, L> bitwise equal to the source's {bool(torch.equal(acc, grad_reference[0]))}, "
-                     f"gradient relative L2 against the source's {rel_l2(dd, grad_reference[1]):.2e}")
-            # the same step on the medium unpacked: the dense instantiations
-            dargs = (dense_med, wdas, None, *rays)
-            dL, dtf, dctr = mk.record_lanes(*dargs, 16)
-            drec_ms = kernel_device_ms(lambda: mk.record_lanes(*dargs, 16), 5, "trace_lanes_kernel")
-            dparts = []
-            for label, o_arg in candidate_orders(mk, dctr).items():
-                if label in ("index order", "longest first", "groups of 256", "groups of 1024"):
-                    dparts.append(f"replay {label} " + "%.4f ms" % kernel_device_ms(
-                        lambda: mk.replay_lanes(*dargs, dL, g_step, tf=dtf, order=o_arg), 5, "replay_lanes_kernel"))
-            line += f"; unpacked: record {drec_ms:.4f} ms, " + ", ".join(dparts)
-        print(line + f" on {card}", flush=True)
+            _, _, acc, _ = mk.replay_lanes(*args, L, g_step, tf=tf, order=order, with_check=True)
+            dd = mk.replay_lanes(*args, L, g_step, tf=tf, order=order)[0]
+            ref = grad_reference.setdefault(layout, (acc, dd))
+            rec_ms = kernel_device_ms(lambda: mk.record_lanes(*args, 16), 5, "trace_lanes_kernel")
+            rep_ms = kernel_device_ms(lambda: mk.replay_lanes(*args, L, g_step, tf=tf, order=order), 5,
+                                      "replay_lanes_kernel")
+            print(f"variant {name}, density step {layout}: record {rec_ms:.4f} ms, replay {rep_ms:.4f} ms (longest group "
+                  f"first); replayed <g, L> bitwise equal to the source's {bool(torch.equal(acc, ref[0]))}, gradient "
+                  f"relative L2 against the source's {rel_l2(dd, ref[1]):.2e} on {card}", flush=True)
+            summary[f"density step {layout}"] = {"record_ms": rec_ms, "replay_ms": rep_ms}
+        print("variants: " + json.dumps({"turn": turn + 1, "variant": name, **summary}), flush=True)
     mk.SOURCE, mk._lib = original, None
     record_summary()
     return 0
@@ -1860,6 +2038,6 @@ def variants(specs):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--variants"]:
         sys.exit(variants(sys.argv[2:]))
-    if sys.argv[1:2] == ["--train"]:
-        sys.exit(train_compare(sys.argv[2] if len(sys.argv) > 2 else REPO))
+    if sys.argv[1:2] == ["--compare"]:
+        sys.exit(compare(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main(only_train=sys.argv[1:] == ["--phase", "9"]))

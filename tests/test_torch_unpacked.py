@@ -305,15 +305,25 @@ def test_dense_arrays_of_2_to_31_voxels_are_refused():
 def test_kernel_source_has_the_dense_instantiations():
     with open(tmk.SOURCE) as f:
         source = f.read()
-    assert "template <bool kTap, bool kDense>" in source
+    # kDense is a form: packed, the grid's own arrays, or their padded copies
+    assert "enum DenseForm { kPacked = 0, kDenseOwn = 1, kDensePadded = 2 };" in source
+    assert "template <bool kTap, int kDense>" in source
+    for form in ("kPacked", "kDenseOwn", "kDensePadded"):
+        assert f"pick_kernel<{form}>(kind, tap)" in source
     assert "render_wave_kernel<true, kDense>" in source and "render_wave_kernel<false, kDense>" in source
     assert "trace_lanes_kernel<true, kDense, false>" in source and "trace_lanes_kernel<false, kDense, false>" in source
     # the record and replay kernels of the gradient path have theirs too,
     # each with its measuring twin
     assert "trace_lanes_kernel<false, kDense, true>" in source and "trace_lanes_kernel<true, kDense, true>" in source
     assert "replay_lanes_kernel<false, kDense>" in source and "replay_lanes_kernel<true, kDense>" in source
-    # the dense arm is chosen at compile time, not by a branch in the step
-    assert "if constexpr (kDense)" in source and "dense_trilinear<kTap>(a.dens" in source
-    assert "dense_trilinear<kTap>(a.tdata" in source
+    # the dense arm and its fetch are chosen at compile time, not by a
+    # branch in the step, for density and temperature alike
+    assert "if constexpr (kDense != kPacked)" in source and "if constexpr (kDense == kDensePadded)" in source
+    assert "dense_trilinear<kTap, kDense>(a.dens" in source and "dense_trilinear<kTap, kDense>(a.tdata" in source
+    # the launch tells the forms apart by the arrays' lengths
+    assert "a.n_dens == own ? kDenseOwn : a.n_dens == padded ? kDensePadded : -1" in source
+    # both dot8 spell out one fusion order, so dense and packed sum alike
+    assert source.count("__fmaf_rn(a.x, w[0], __fmul_rn(a.y, w[1]))") == 1
+    assert source.count("__fmaf_rn(v[0], w[0], __fmul_rn(v[1], w[1]))") == 1
     # the C interface carries the three new arrays to all four launches
     assert source.count("const float* dens, int n_dens, const float* maj, int n_maj") == 5

@@ -22,7 +22,7 @@ import torch
 from ..grids.grid import pack_corner_rows
 from ..grids.majorant import build_majorants
 from ..models.camera import Camera
-from ..models.medium import Medium, pack_fused_rows
+from ..models.medium import Medium, pack_fused_rows, padded_copies
 from ..render.integrator import IntegratorParams, trace_rays_diff
 from ..render.megakernel import JITTER_COUNTER
 from ..utils import rng as vrng
@@ -114,14 +114,17 @@ def medium_with_params(base: Medium, grids: OptimizableGrids, bloat: float = 0.1
     Majorants come from the detached density with `bloat` slack (gradient
     rendering needs a null-collision probability > 0 everywhere;
     grids/majorant.build_majorants). pack=True builds the fused rows (8
-    wide) and the temperature corner rows too, from detached data: the
-    replay gradient never differentiates through them.
+    wide) and the temperature corner rows too, pack=False the grids'
+    padded copies where models/medium.py padded_copies makes them, from
+    detached data: the replay gradient never differentiates through them.
     """
     density = dataclasses.replace(base.density, data=density_from_param(grids.log_density))
     temperature = base.temperature
     if grids.temperature is not None and base.temperature is not None:
         temperature = dataclasses.replace(base.temperature, data=grids.temperature)
     majorants = build_majorants(density, bloat=bloat)
+    if not pack:
+        density, temperature = padded_copies(density, temperature)
     return Medium(
         density=density,
         majorants=majorants,

@@ -505,9 +505,8 @@ def _detached_medium(medium: Medium) -> Medium:
     temp = medium.temperature
     return dataclasses.replace(
         medium,
-        density=dataclasses.replace(medium.density, data=medium.density.data.detach().contiguous()),
-        temperature=(dataclasses.replace(temp, data=temp.data.detach().contiguous())
-                     if temp is not None else None),
+        density=medium.density.detached(),
+        temperature=temp.detached() if temp is not None else None,
     )
 
 
@@ -530,8 +529,8 @@ class _PathReplay(torch.autograd.Function):
             if k == 0:
                 tf = None
         else:
-            # On the card this is the same estimate, bit for bit only where
-            # the voxel size is a power of two (record_lanes).
+            # The same sample bit for bit: the record kernel starts its lanes
+            # as init_state does (record_lanes).
             L, _, _ = trace_rays_fused(medium, params, bb_table, o_world, d_world, pixel_ids, stream)
         L = L.contiguous()
         ctx.medium, ctx.params, ctx.bb_table, ctx.stream = medium, params, bb_table, stream

@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..grids.grid import DenseGrid, _pack_columns, dense_grid_from_array, pack_corner_rows
+from ..grids.grid import DenseGrid, _pack_columns, dense_grid_from_array, pack_corner_rows, with_padded_copy
 from ..grids.majorant import MajorantPyramid, build_majorants
 from ..utils.device import DeviceLike, resolve_device
 
@@ -112,7 +112,8 @@ class Medium:
         device: DeviceLike = None,
     ) -> "Medium":
         """Build a medium on `device` (CUDA unless device="cpu"), computing
-        majorants and, with pack=True, the fused row table."""
+        majorants and, with pack=True, the fused row table, else, where
+        padded_copies says so, the grids' padded copies."""
         dev = resolve_device(device)
         density = density.to(dev)
         temperature = temperature.to(dev) if temperature is not None else None
@@ -130,6 +131,8 @@ class Medium:
             if (pack and temperature is not None and t_on_d is None)
             else None
         )
+        if not pack:
+            density, temperature = padded_copies(density, temperature)
         return Medium(
             density=density,
             majorants=majorants,
@@ -137,6 +140,29 @@ class Medium:
             density_rows=rows,
             temperature_rows=trows,
         )
+
+
+def padded_copies(density: DenseGrid, temperature: Optional[DenseGrid]):
+    """(density, temperature) of a medium without the fused table, each
+    carrying its array zero-padded by one voxel (DenseGrid.padded) where the
+    copies pay: on a CUDA device whose L2 cache holds them all. There the
+    dense kernels read the copies with a fetch that has no per-corner test,
+    2-5% faster; an array that does not fit in L2 is read from its own
+    array, the faster fetch from HBM (PERF.md, Findings), and keeps no
+    second copy. Elsewhere the grids are returned as they are."""
+    grids = [g for g in (density, temperature) if g is not None]
+    if not pads_in_l2(density.device, [g.shape for g in grids]):
+        return density, temperature
+    return tuple(None if g is None else with_padded_copy(g) for g in (density, temperature))
+
+
+def pads_in_l2(device: torch.device, shapes) -> bool:
+    """Whether arrays of these [X, Y, Z] shapes, each zero-padded by one
+    voxel, fit in the L2 cache of `device` together (False off CUDA)."""
+    if device.type != "cuda":
+        return False
+    nbytes = sum(4 * (x + 2) * (y + 2) * (z + 2) for x, y, z in shapes)
+    return nbytes <= torch.cuda.get_device_properties(device).L2_cache_size
 
 
 def _grid_from_numpy(g) -> DenseGrid:

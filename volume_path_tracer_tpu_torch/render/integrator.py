@@ -288,7 +288,7 @@ def temperature_local(medium: Medium, p_col):
     tgrid = medium.temperature
     dev = p_col.device
     p_world = p_col * dgrid.voxel_size + _f32(dgrid.world_offset, dev)
-    tp = (p_world - _f32(tgrid.world_offset, dev)) / tgrid.voxel_size
+    tp = tgrid.world_to_index(p_world)
     return tp - _f32(tgrid.origin_ijk, dev)
 
 

@@ -7,8 +7,10 @@ _pallas_step_call from trace_rays_fused) together with its XLA prestep
 one warp loop (persistent warps that refill retired lanes from a queue) and
 two kernels around them; its notes say what bounds them on the card. Each
 kernel has a second instantiation for a medium without the fused table
-(Medium.from_grids(pack=False)): the same step, reading the dense density
-array, the majorant pairs and the dense temperature array.
+(Medium.from_grids(pack=False)): the same step, reading the density array,
+the majorant pairs and the temperature array, each array in one of two
+forms (dense_arrays): the grid's own, or its copy zero-padded by one voxel
+(DenseGrid.padded) where the medium keeps one.
 
   render_wave        the renderer's wave: one launch makes each pixel's
                      camera ray, traces it and adds its sample to the film.
@@ -41,9 +43,10 @@ The gradient path (diff/prb.py trace_rays_prb) has two more:
                      plain version, diff/prb.py replay_grads.
 
 WAVE_LAUNCHES, LAUNCHES, RECORD_LAUNCHES, REPLAY_LAUNCHES and the PLAIN_*
-counters of the plain versions count the launches of each, and the DENSE_*
-counters those of the dense instantiations among them, so a run can show
-which one its main path went through.
+counters of the plain versions count the launches of each, the DENSE_*
+counters those of the dense instantiations among them, and the PADDED_*
+counters those of the dense launches that read the padded copies, so a run
+can show which one its main path went through.
 
 The kernels are compiled with nvcc at first use, from the checkout's own
 source, into volume_path_tracer_tpu_torch/_build/ (one library per source
@@ -61,6 +64,7 @@ import dataclasses
 import hashlib
 import os
 import subprocess
+import threading
 import weakref
 from typing import NamedTuple, Optional, Tuple, Union
 
@@ -122,6 +126,11 @@ PLAIN_RECORD_LAUNCHES = 0  # plain-version runs (record_lanes_plain)
 PLAIN_REPLAY_LAUNCHES = 0  # plain-version runs (replay_lanes_plain)
 DENSE_RECORD_LAUNCHES = 0
 DENSE_REPLAY_LAUNCHES = 0
+# Those of the DENSE_* launches that read the grids' padded copies.
+PADDED_WAVE_LAUNCHES = 0
+PADDED_LAUNCHES = 0
+PADDED_RECORD_LAUNCHES = 0
+PADDED_REPLAY_LAUNCHES = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "trace_lanes.cu")
@@ -275,22 +284,24 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> str:
-    """Compile csrc/trace_lanes.cu (once per source content) and return the
-    library's path. The compiler's report (registers, spills) is kept beside
-    it in a .log file."""
-    with open(SOURCE, "rb") as f:
+def build(source: Optional[str] = None) -> str:
+    """Compile `source` (default SOURCE, csrc/trace_lanes.cu) once per source
+    content and return the library's path. The compiler's report
+    (registers, spills) is kept beside it in a .log file. Builds of
+    different sources may run at once (one nvcc each)."""
+    source = source or SOURCE
+    with open(source, "rb") as f:
         tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"libtrace_lanes-{tag}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     r = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, source], capture_output=True, text=True
     )
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{r.stdout}\n{r.stderr}")
+        raise RuntimeError(f"nvcc failed on {source}:\n{r.stdout}\n{r.stderr}")
     with open(out + ".log", "w") as f:
         f.write(r.stdout + r.stderr)
     os.replace(tmp, out)
@@ -329,10 +340,13 @@ class Occupancy(NamedTuple):
     replay: int  # replay_lanes_kernel
 
 
-def occupancy(device: torch.device, dense: bool = False) -> Occupancy:
-    """The Occupancy of the packed or the dense instantiations on `device`."""
+def occupancy(device: torch.device, dense: bool = False, padded: bool = False) -> Occupancy:
+    """The Occupancy of the packed or the dense instantiations on `device`,
+    the dense ones of the grid's own arrays or (padded) of the padded
+    copies."""
     out = [ctypes.c_int(0) for _ in range(6)]
-    err = _library().vpt_occupancy(device.index or 0, int(dense), *(ctypes.byref(v) for v in out))
+    form = 0 if not dense else 2 if padded else 1
+    err = _library().vpt_occupancy(device.index or 0, form, *(ctypes.byref(v) for v in out))
     _raise_on(err, "occupancy query")
     return Occupancy(*(v.value for v in out))
 
@@ -494,7 +508,8 @@ def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.T
     rows = medium.density_rows
     dense = rows is None
     if dense:
-        _check_dense(medium.density.data, "the density array", dev)
+        for name, data in zip(("density", "temperature"), dense_arrays(medium, emission_enabled(medium, params))):
+            _check_dense(data, f"the {name} array", dev)
         maj = medium.majorants.rows
         if maj.dtype != torch.float32 or maj.dim() != 2 or maj.shape[1] != 2 or maj.device != dev \
                 or not maj.is_contiguous() or maj.data_ptr() % 8:
@@ -509,7 +524,6 @@ def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.T
             raise ValueError("an emissive medium needs the blackbody table")
         if dense:
             emission = 3
-            _check_dense(medium.temperature.data, "the temperature array", dev)
         else:
             emission = 1 if rows.shape[1] >= 16 else 2
         trows = medium.temperature_rows
@@ -520,13 +534,32 @@ def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.T
     return dense, emission
 
 
-def _check_dense(data: torch.Tensor, name: str, device):
-    """A dense grid array as the dense instantiations read it: 32-bit voxel
+def _check_dense(data: Optional[torch.Tensor], name: str, device):
+    """A dense array as the dense instantiations read it: 32-bit voxel
     indices, as row indices are for a table."""
+    if data is None:
+        return
     if data.dtype != torch.float32 or data.dim() != 3 or data.device != device \
             or not data.is_contiguous() or data.numel() >= 2**31:
         raise ValueError(f"{name} must be a contiguous float32 [X, Y, Z] tensor of fewer "
                          f"than 2^31 voxels on {device}")
+
+
+def dense_arrays(medium: Medium, emission: bool):
+    """(density, temperature or None) arrays that a dense launch reads:
+    the grids' padded copies (DenseGrid.padded, models/medium.py
+    padded_copies) where every grid it reads has one, else the grids' own
+    arrays. The kernel tells the two forms apart by the arrays' lengths.
+    `emission`: whether the launch reads the temperature."""
+    grids = [medium.density] + ([medium.temperature] if emission else [])
+    padded = all(g.padded is not None for g in grids)
+    out = [g.padded if padded else g.data for g in grids]
+    return out[0], (out[1] if emission else None)
+
+
+def _reads_padded(medium: Medium, consts: KernelConstants) -> bool:
+    """Whether a launch with these constants reads the padded copies."""
+    return consts.dense and dense_arrays(medium, consts.emission == 3)[0] is medium.density.padded
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -550,18 +583,20 @@ def tap_layout(medium: Medium, emission: int):
     """What a measuring launch marks in row_tap, in order, as (what, marks,
     bytes a mark stands for). `emission` is KernelConstants.emission. With
     the fused table: its rows, then the temperature corner rows if read.
-    Without it: the 32-byte sectors of the density array, the majorant
-    pairs, then the sectors of the temperature array if read."""
+    Without it: the 32-byte sectors of the density array as the launch
+    reads it (dense_arrays), the majorant pairs, then the sectors of the
+    temperature array if read."""
     rows = medium.density_rows
     if rows is not None:
         out = [("rows", rows.shape[0], rows.shape[1] * 4)]
         if emission == 2:
             out.append(("temperature rows", medium.temperature_rows.shape[0], 32))
         return out
-    out = [("density sectors", -(-medium.density.data.numel() // SECTOR_FLOATS), 32),
+    dens, tdata = dense_arrays(medium, emission == 3)
+    out = [("density sectors", -(-dens.numel() // SECTOR_FLOATS), 32),
            ("majorant pairs", medium.majorants.rows.shape[0], 8)]
     if emission == 3:
-        out.append(("temperature sectors", -(-medium.temperature.data.numel() // SECTOR_FLOATS), 32))
+        out.append(("temperature sectors", -(-tdata.numel() // SECTOR_FLOATS), 32))
     return out
 
 
@@ -600,8 +635,7 @@ def _table_args(medium: Medium, consts: KernelConstants, dev, row_tap, stat):
     if stat is not None:
         _check(stat, "stat", torch.int64, (stat_size(dev),), dev)
     if consts.dense:
-        dens, maj = medium.density.data, medium.majorants.rows
-        tdata = medium.temperature.data if consts.emission == 3 else None
+        (dens, tdata), maj = dense_arrays(medium, consts.emission == 3), medium.majorants.rows
         tables = (None, 0, 0, None, 0, _ptr(consts.pairs), dens.data_ptr(), dens.numel(),
                   maj.data_ptr(), maj.shape[0], _ptr(tdata), tdata.numel() if tdata is not None else 0)
     else:
@@ -652,9 +686,10 @@ def trace_lanes(
         sf.data_ptr(), si.data_ptr(), pids.data_ptr(), strm.data_ptr(), n, int(max_steps), *tables,
     )
     _raise_on(err, "trace_lanes launch")
-    global LAUNCHES, DENSE_LAUNCHES
+    global LAUNCHES, DENSE_LAUNCHES, PADDED_LAUNCHES
     LAUNCHES += 1
     DENSE_LAUNCHES += consts.dense
+    PADDED_LAUNCHES += _reads_padded(medium, consts)
     return sf, si
 
 
@@ -712,9 +747,10 @@ def render_wave(
         film.data_ptr(), _ptr(pids), start, n, int(stream) & 0xFFFFFFFF, int(steps), *tables,
     )
     _raise_on(err, "render_wave launch")
-    global WAVE_LAUNCHES, DENSE_WAVE_LAUNCHES
+    global WAVE_LAUNCHES, DENSE_WAVE_LAUNCHES, PADDED_WAVE_LAUNCHES
     WAVE_LAUNCHES += 1
     DENSE_WAVE_LAUNCHES += consts.dense
+    PADDED_WAVE_LAUNCHES += _reads_padded(medium, consts)
     # The scratch belongs to the next launch too: hand out a copy.
     out = consts.scratch[1:3].clone()
     return out[1], out[0]
@@ -790,11 +826,9 @@ def record_lanes(
     launches the record instantiation of trace_lanes_kernel once, or raises:
     each lane is born in the kernel from its ray as init_state makes it,
     runs trace_lanes's lane step and ends as its three outputs; every slot
-    of tf is written. The kernel divides by the voxel size where torch's
-    CUDA init_state multiplies by its reciprocal, so the radiance is
-    trace_rays_fused's bit for bit only where the voxel size is a power of
-    two; elsewhere a lane may start an ulp apart and end as another sample
-    of the same estimate. On CPU tensors it runs
+    of tf is written. The kernel's world -> index is a true division, as
+    init_state's (grids/grid.py), so the radiance and counters are
+    trace_rays_fused's bit for bit. On CPU tensors it runs
     record_lanes_plain. With residuals to record (k_walks > 0) it refuses
     max_iters >= 2^24, where a counter would not be exact as a float32.
     row_tap and stat: as in trace_lanes.
@@ -816,9 +850,10 @@ def record_lanes(
         ctr.data_ptr(), tf.data_ptr(), int(k_walks), *tables,
     )
     _raise_on(err, "record_lanes launch")
-    global RECORD_LAUNCHES, DENSE_RECORD_LAUNCHES
+    global RECORD_LAUNCHES, DENSE_RECORD_LAUNCHES, PADDED_RECORD_LAUNCHES
     RECORD_LAUNCHES += 1
     DENSE_RECORD_LAUNCHES += consts.dense
+    PADDED_RECORD_LAUNCHES += _reads_padded(medium, consts)
     return L, tf, ctr
 
 
@@ -930,9 +965,10 @@ def replay_lanes(
         _ptr(gacc), _ptr(steps), *tables,
     )
     _raise_on(err, "replay_lanes launch")
-    global REPLAY_LAUNCHES, DENSE_REPLAY_LAUNCHES
+    global REPLAY_LAUNCHES, DENSE_REPLAY_LAUNCHES, PADDED_REPLAY_LAUNCHES
     REPLAY_LAUNCHES += 1
     DENSE_REPLAY_LAUNCHES += consts.dense
+    PADDED_REPLAY_LAUNCHES += _reads_padded(medium, consts)
     if row_tables is not None:
         row_tables.extend((gd, gt))
     d_density = fold_corner_rows(gd, (X, Y, Z))
