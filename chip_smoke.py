@@ -71,13 +71,30 @@ Phases, each stopping the run with a non-zero exit on failure:
               joint density and temperature) through make_train_step: train
               rays/s, the step's device time by kernel, host launches a
               step, busy share and peak memory
+ 10. mesh     the parallel/ layer (prints torch.cuda.device_count()): the
+              flagship (256x256, 16 waves) by render_film_sharded on meshes
+              4x1 and 2x2 over the one card (over the cards where there
+              are several; on one card a mesh measures correctness and
+              overhead, not scaling): 'rays' bitwise the one-device render,
+              'spp' within 2e-5 of sequential waves, lane-iterations equal
+              to one device's, rays/s beside the one-device render; the
+              unpacked flagship on 4x1 (dense and padded launches per
+              launch as on one device); the density train cell (128x128 x
+              8) through make_train_step on 2x1 against mesh=None (loss
+              rtol 1e-5, gradients rtol 1e-4, atol 1e-6); the
+              multi-process example at its defaults (1024x1024, 8 waves)
+              over NCCL at world size 1 and in two processes on the one
+              card over gloo (films bitwise equal, rays/s); the
+              inverse-rendering example at its defaults, density and
+              --joint (train steps/s, recovery)
 
 The line before the last is the kernels' JSON record (launches on the main
 path, error against the plain version, times and bound); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. Images and the CLI's
 scene file go to chip_smoke_out/ (listed in .gitignore).
 
-Other modes: --phase 9 (phases 1, 2 and 9 alone, no result lines);
+Other modes: --phase 9, --phase 10 (phases 1, 2 and that one alone, no
+result lines);
 --compare [DIR] (the port in the checkout DIR with its own code: the wave
 cells packed and dense, the gradient kernels and the three train cells, so
 that a parent commit unpacked with git archive and this one compare on one
@@ -103,6 +120,10 @@ FP32_OPS_PER_S = 67e12
 # per camera ray made by render_wave_kernel (jitter, ray, box clip).
 OPS_PER_LANE_STEP = 150
 OPS_PER_RAY_SETUP = 80
+# The counting wave kernel's lane-iterations against the plain version's on
+# the same inputs: equal but for the lanes whose knife-edge events flip
+# (trace_statistic) and then take other paths.
+LANE_ITERS_RTOL = 0.01
 
 # The flagship transport (scenes/wdas_cloud.json, as bench.py pins it).
 WDAS_SCENE = {
@@ -295,6 +316,25 @@ def film_statistic(film_k, nc_k, film_p, nc_p, what):
     p = film_p.reshape(-1, 4).cpu().numpy()
     check(bool((k[:, 3] == p[:, 3]).all()), f"{what}: sample counts differ")
     trace_statistic(k[:, :3], nc_k, p[:, :3], nc_p, what)
+
+
+def lane_iters_check(mk, film_k, wave, li_p, what):
+    """Launch the counting wave kernel (render_wave with
+    return_lane_iters) on `wave`, the arguments the wave kernel made film_k
+    with from zero: its film must be film_k bitwise and its lane-iterations
+    the plain version's li_p within LANE_ITERS_RTOL. Returns the kernel's."""
+    import torch
+
+    film_c = torch.zeros_like(film_k)
+    li_k = int(mk.render_wave(film=film_c, **wave, return_lane_iters=True)[2])
+    li_p = int(li_p)
+    same = bool(torch.equal(film_c, film_k))
+    print(f"counting wave {what}: film bitwise equal to the wave kernel's {same}; lane-iterations {li_k} "
+          f"against the plain version's {li_p} (rel diff {abs(li_k - li_p) / max(li_p, 1):.3e})")
+    check(same, f"{what}: the counting wave kernel's film differs from the wave kernel's")
+    check(abs(li_k - li_p) <= LANE_ITERS_RTOL * li_p,
+          f"{what}: lane-iterations {li_k} against the plain version's {li_p} beyond rtol {LANE_ITERS_RTOL}")
+    return li_k
 
 
 def wave_args(scene, wave):
@@ -1130,6 +1170,235 @@ def time_wave_cells(cells, card, label):
     return summary, films
 
 
+# Phase 10: the port's parallel/ layer on the card. Mesh shapes over the one
+# card (or over the cards, where there are several), the flagship's waves
+# per call and the density train cell through make_train_step(mesh=...).
+MESH_SHAPES = ((4, 1), (2, 2))
+MESH_TRAIN_STEPS = 4
+
+
+def mesh_devices(dev, n):
+    """n cells' devices: the visible cards in turn, or `dev` n times where
+    there is one card (a mesh on one card measures correctness and the
+    sharded path's overhead, not scaling)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)] if count > 1 else [dev] * n
+
+
+def run_example(args, env, timeout=300):
+    """Run the multi-process example in len(args) processes at once (one
+    argument list each); returns their outputs. Every process is stopped."""
+    procs = []
+    try:
+        for a in args:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "volume_path_tracer_tpu_torch.examples.multihost_render", *a],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        check(p.returncode == 0, f"multihost_render exited with {p.returncode}:\n{out[-3000:]}")
+    return outs
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(card, dev):
+    """Phase 10 on the CUDA device `dev`: the sharded wave and film against
+    the one-device render, the sharded train step against mesh=None, the
+    multi-process example over NCCL (world size 1) and over gloo (two
+    processes on the one card), and the inverse-rendering example. Returns
+    the launches of the wave, record and replay kernels on these paths."""
+    import numpy as np
+    import torch
+
+    from volume_path_tracer_tpu_torch.diff import inverse as inv
+    from volume_path_tracer_tpu_torch.examples import inverse_rendering
+    from volume_path_tracer_tpu_torch.grids.procedural import fog_sphere
+    from volume_path_tracer_tpu_torch.models.medium import Medium
+    from volume_path_tracer_tpu_torch.parallel import shard
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+    from volume_path_tracer_tpu_torch.render.renderer import Scene, render
+    from volume_path_tracer_tpu_torch.utils import rng as vrng
+    from volume_path_tracer_tpu_torch.utils.config import loads_configuration
+
+    t_phase = time.perf_counter()
+    print(f"torch.cuda.device_count() {torch.cuda.device_count()}", flush=True)
+    launches = {"render_wave": 0, "render_wave_dense": 0, "render_wave_dense_own": 0, "record": 0, "replay": 0}
+    flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
+    grid = fog_sphere(radius=30.0, falloff=6.0)
+    for pack in (True, False):
+        sc = Scene.from_config(flag_cfg, Medium.from_grids(grid, pack=pack), max_iters=FLAGSHIP_MAX_ITERS)
+        what = "flagship" if pack else "flagship unpacked"
+        W, H, waves = sc.width, sc.height, sc.num_waves
+        bb = sc.bb_table
+        render(sc)  # warm-up
+        one_s = []
+        for _ in range(2):
+            reset_launch_counts(mk)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            film_1 = render(sc)
+            torch.cuda.synchronize()
+            one_s.append(time.perf_counter() - t0)
+        one = dict(wave=mk.WAVE_LAUNCHES, dense=mk.DENSE_WAVE_LAUNCHES, padded=mk.PADDED_WAVE_LAUNCHES)
+        raster, pids, npix = shard.pad_ray_batch(W, H, 4)
+        for rays, spp in MESH_SHAPES if pack else MESH_SHAPES[:1]:
+            mesh = shard.make_mesh(rays * spp, spp=spp, devices=mesh_devices(dev, rays * spp))
+            shard.render_film_sharded(mesh, sc.medium, sc.params, sc.camera, bb, W, H, sc.seed, spp)  # warm-up
+            mesh_s = []
+            for _ in range(2):
+                reset_launch_counts(mk)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                film = shard.render_film_sharded(mesh, sc.medium, sc.params, sc.camera, bb, W, H, sc.seed, waves)
+                torch.cuda.synchronize()
+                mesh_s.append(time.perf_counter() - t0)
+            got = dict(wave=mk.WAVE_LAUNCHES, dense=mk.DENSE_WAVE_LAUNCHES, padded=mk.PADDED_WAVE_LAUNCHES,
+                       plain=mk.PLAIN_WAVE_LAUNCHES + mk.PLAIN_LAUNCHES + mk.LAUNCHES)
+            launches["render_wave"] += got["wave"] - got["dense"]
+            launches["render_wave_dense"] += got["padded"]
+            launches["render_wave_dense_own"] += got["dense"] - got["padded"]
+            calls = waves // spp
+            check(got["wave"] == calls * mesh.size and got["plain"] == 0,
+                  f"{what} {rays}x{spp}: {got} launches, expected {calls * mesh.size} wave kernel launches alone")
+            # the dense and padded launches per wave launch: the one-device path's
+            check(got["dense"] * one["wave"] == one["dense"] * got["wave"]
+                  and got["padded"] * one["wave"] == one["padded"] * got["wave"],
+                  f"{what} {rays}x{spp}: dense / padded launches {got} against one device's {one}")
+            if spp == 1:
+                ref, same = film_1, bool(torch.equal(film, film_1))
+                check(same, f"{what} {rays}x{spp}: the film differs from the one-device render")
+                err = 0.0
+            else:
+                # calls 1..waves/S render global waves S .. waves + S - 1
+                ref = torch.zeros_like(film_1)
+                for gw in range(spp, waves + spp):
+                    mk.render_wave(sc.medium, sc.params, sc.camera, bb, ref, range(0, npix),
+                                   vrng.mix_stream(sc.seed, gw), sc.use_jitter, sc.camera.imaging_ratio)
+                same = bool(torch.allclose(film, ref, rtol=2e-5, atol=2e-5))
+                err = float((film - ref).abs().max())
+                check(same, f"{what} {rays}x{spp}: the film differs from sequential waves beyond 2e-5 ({err:.3e})")
+            # lane-iterations of one call against the one-device waves it renders
+            _, _, _, lanes = shard.render_wave_sharded(mesh, sc.medium, sc.params, sc.camera, bb, raster, pids,
+                                                       sc.seed, 1, sc.use_jitter, return_lane_iters=True)
+            one_lanes = 0
+            for gw in range(spp, 2 * spp):
+                scratch = torch.zeros_like(film_1)
+                one_lanes += int(mk.render_wave(sc.medium, sc.params, sc.camera, bb, scratch, range(0, npix),
+                                                vrng.mix_stream(sc.seed, gw), sc.use_jitter,
+                                                sc.camera.imaging_ratio, return_lane_iters=True)[2])
+            check(int(lanes) == one_lanes, f"{what} {rays}x{spp}: lane-iterations {int(lanes)} != {one_lanes}")
+            print(f"mesh {what} {rays}x{spp} ({mesh.size} cells on {len({str(d) for d in mesh.devices.flat})} "
+                  f"device(s)), {W}x{H}x{waves}: film {'bitwise equal to the one-device render' if spp == 1 else f'within 2e-5 of sequential waves {spp}..{waves + spp - 1} (max abs {err:.3e})'}; "
+                  f"lane-iterations of wave 1 {int(lanes)} = one device's {one_lanes}; launches {got} "
+                  f"(one device: {one}); rays/s {npix * waves / min(mesh_s):.1f} (render only, best of 2: "
+                  f"{[round(t, 4) for t in mesh_s]} s) against one device's render {npix * waves / min(one_s):.1f} "
+                  f"({[round(t, 4) for t in one_s]} s) on {card}", flush=True)
+        del sc, film, film_1
+
+    # The density train cell (bench.py:287-304, unpacked: make_train_step's
+    # default) on a 2x1 mesh against mesh=None: one step from the same
+    # grids, then steps timed.
+    med, fog_base, wdas, fog_cam, coords, tpids, _ = density_step(dev)
+    del med
+    target = torch.zeros((TRAIN_SIZE * TRAIN_SIZE, 3), dtype=torch.float32, device=dev)
+    start = inv.param_from_density(fog_base.density.data)
+    results = {}
+    for label, mesh in (("one device", None), ("2x1", shard.make_mesh(2, devices=mesh_devices(dev, 2)))):
+        grids = inv.OptimizableGrids(start.clone().requires_grad_(True))
+        opt = inv.make_optimizer(grids)
+        step = inv.make_train_step(fog_base, wdas, fog_cam, None, n_iters=TRAIN_ITERS, samples_per_step=TRAIN_K,
+                                   mesh=mesh)
+        grids, opt, loss = step(grids, opt, coords, tpids, target, (3, 1))
+        first = (float(loss), grids.log_density.grad.clone())
+        reset_launch_counts(mk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MESH_TRAIN_STEPS):
+            grids, opt, loss = step(grids, opt, coords, tpids, target, (3, 2 + i))
+        float(loss)
+        dt = time.perf_counter() - t0
+        cells = 1 if mesh is None else mesh.size
+        check(mk.RECORD_LAUNCHES == mk.REPLAY_LAUNCHES == MESH_TRAIN_STEPS * cells
+              and mk.PLAIN_RECORD_LAUNCHES + mk.PLAIN_REPLAY_LAUNCHES == 0,
+              f"train {label}: {mk.RECORD_LAUNCHES} record / {mk.REPLAY_LAUNCHES} replay launches in "
+              f"{MESH_TRAIN_STEPS} steps of {cells} cell(s)")
+        if mesh is not None:
+            launches["record"] += mk.RECORD_LAUNCHES
+            launches["replay"] += mk.REPLAY_LAUNCHES
+        results[label] = first + (TRAIN_SIZE * TRAIN_SIZE * TRAIN_K * MESH_TRAIN_STEPS / dt,)
+    (l1, g1, r1), (l2, g2, r2) = results["one device"], results["2x1"]
+    g_ok = bool(torch.allclose(g2, g1, rtol=1e-4, atol=1e-6))
+    l_ok = abs(l2 - l1) <= 1e-5 * abs(l1)
+    print(f"mesh train density cell ({TRAIN_SIZE}x{TRAIN_SIZE} x {TRAIN_K}, unpacked) 2x1 against mesh=None: loss "
+          f"{l2:.7g} vs {l1:.7g} (rtol 1e-5: {l_ok}), gradients within rtol 1e-4, atol 1e-6: {g_ok} (max abs "
+          f"diff {float((g2 - g1).abs().max()):.3e} of max {float(g1.abs().max()):.3e}); train rays/s {r2:.1f} "
+          f"against {r1:.1f} on one device ({MESH_TRAIN_STEPS} steps, host clock) on {card}", flush=True)
+    check(l_ok and g_ok, "the sharded train step differs from the one-device step")
+    del fog_base, coords, tpids, target, start, results
+
+    # The multi-process example at its defaults (1024x1024, 8 waves): NCCL at
+    # world size 1, then two processes on the one card over gloo (NCCL
+    # refuses two ranks on one device); the films equal.
+    env = dict(os.environ, PYTHONPATH=REPO, LOCAL_RANK="0")
+    dumps = {k: os.path.join(OUT_DIR, f"multihost_{k}.npz") for k in ("nccl", "gloo")}
+    out_nccl = run_example([["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+                             "--process-id", "0", "--dump", dumps["nccl"]]], env)[0]
+    port = free_port()
+    outs_gloo = run_example([["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(i),
+                              "--backend", "gloo", "--dump", dumps["gloo"]] for i in range(2)], env)
+    films = {k: np.load(v)["film"] for k, v in dumps.items()}
+    same = bool(np.array_equal(films["nccl"], films["gloo"]))
+
+    def rate(out):
+        line = next(x for x in out.splitlines() if "rays/s total" in x)
+        return line[line.index("[multihost] ") + 12:]
+
+    print(f"multihost_render, NCCL at world size 1: {rate(out_nccl)}", flush=True)
+    print(f"multihost_render, two processes on one card over gloo (its all_reduce takes the CUDA tensors): "
+          f"{rate(outs_gloo[0])}; film bitwise equal to the one-process film {same}; film mean w "
+          f"{float(films['gloo'][..., 3].mean())} on {card}", flush=True)
+    check(same, "the two-process film differs from the one-process film")
+    check(np.isfinite(films["gloo"]).all() and (films["gloo"][..., 3] == 8).all(),
+          "the multi-process film is not finite or has wrong weights")
+
+    # The inverse-rendering example at its defaults, in this process.
+    for extra in ([], ["--joint"]):
+        s = inverse_rendering.main(extra + ["--out", os.path.join(OUT_DIR, "inverse" + "_joint" * bool(extra))])
+        if extra:
+            # The joint example's temperature error falls, then drifts up
+            # again at its default 60 steps (Adam at 0.3 on the temperature
+            # overshoots): the gate is that the curve went well below the
+            # start and ended finite, not above 1.1 times the start.
+            best = min(s["curve"], key=lambda c: c["temp_mae"])
+            msg = (f"temperature error {s['temp_mae_init']} -> {s['temp_mae_final']} (density-weighted MAE; least "
+                   f"{best['temp_mae']} at step {best['step']}), correlation {s['temp_corr_final']}")
+            ok = (best["temp_mae"] < 0.8 * s["temp_mae_init"] and all(np.isfinite(c["loss"]) for c in s["curve"])
+                  and np.isfinite(s["temp_mae_final"]) and s["temp_mae_final"] <= 1.1 * s["temp_mae_init"])
+        else:
+            msg = f"voxel correlation {s['vox_corr']:.4f}"
+            ok = s["vox_corr"] > 0.3 and s["loss_last"] < s["loss_first"]
+        print(f"inverse_rendering {'--joint' if extra else 'density'} ({s['steps']} steps, "
+              f"{s.get('train_steps', s['steps'])} train steps): {s['steps_per_s']:.2f} train steps/s, loss "
+              f"{s['loss_first']:.6g} -> {s['loss_last']:.6g}, {msg} on {card}", flush=True)
+        check(ok, f"inverse_rendering {extra}: no recovery")
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def compare(repo_dir):
     """python3 chip_smoke.py --compare [DIR]
 
@@ -1188,9 +1457,9 @@ def compare(repo_dir):
     return 0
 
 
-def main(only_train=False):
-    """The whole run; only_train (--phase 9): phases 1, 2 and 9, printing no
-    kernels line and no result line."""
+def main(only=None):
+    """The whole run; only="9" or "10" (--phase 9, --phase 10): phases 1, 2
+    and that phase, printing no kernels line and no result line."""
     import torch
 
     phase("1 device")
@@ -1250,10 +1519,15 @@ def main(only_train=False):
               f"{occ.sms} SMs: render_wave_kernel {occ.wave / occ.sms:.2f}, trace_lanes_kernel "
               f"{occ.trace / occ.sms:.2f}, its record instantiation {occ.record / occ.sms:.2f}, replay_lanes_kernel "
               f"{occ.replay / occ.sms:.2f}")
-    if only_train:
+    if only == "9":
         phase("9 train")
         train_phase(card, dev)
         record_summary()
+        print(card)
+        return 0
+    if only == "10":
+        phase("10 mesh")
+        print("mesh launches: " + json.dumps(mesh_phase(card, dev)))
         print(card)
         return 0
 
@@ -1352,10 +1626,14 @@ def main(only_train=False):
             films = [torch.zeros((SH, SW, 4), dtype=torch.float32, device=dev) for _ in range(2)]
             wave = (med, prm, cam, bbt)
             it_k, nc_k = mk.render_wave(*wave, films[0], range(0, SW * SH), s, True, 0.1)
-            it_p, nc_p = mk.render_wave_plain(*wave, films[1], range(0, SW * SH), s, True, 0.1)
+            it_p, nc_p, li_p = mk.render_wave_plain(*wave, films[1], range(0, SW * SH), s, True, 0.1,
+                                                    return_lane_iters=True)
             film_statistic(films[0], int(nc_k), films[1], int(nc_p),
                            f"render_wave {name} ({layout}, {SW}x{SH} pixels; longest lane "
                            f"{int(it_k)} vs {int(it_p)})")
+            lane_iters_check(mk, films[0], dict(medium=med, params=prm, camera=cam, bb_table=bbt,
+                                                pixels=range(0, SW * SH), stream=s, use_jitter=True,
+                                                imaging_ratio=0.1), li_p, f"{name} ({layout})")
             if pack:
                 packed = (L_k, films[0])
                 continue
@@ -1389,12 +1667,14 @@ def main(only_train=False):
     torch.cuda.synchronize()
     film_p = torch.zeros_like(film_k)
     t0 = time.perf_counter()
-    it_p, nc_p = mk.render_wave_plain(film=film_p, pixels=range(0, n), **kw)
+    it_p, nc_p, li_p = mk.render_wave_plain(film=film_p, pixels=range(0, n), **kw, return_lane_iters=True)
     torch.cuda.synchronize()
     wave_plain_ms = (time.perf_counter() - t0) * 1e3
     film_statistic(film_k, int(nc_k), film_p, int(nc_p),
                    f"render_wave flagship wave ({n} pixels, max_iters {FLAGSHIP_MAX_ITERS}; longest lane "
                    f"{int(it_k)} vs {int(it_p)})")
+    wave_lane_iters = (lane_iters_check(mk, film_k, dict(kw, pixels=range(0, n)), li_p, "flagship wave"),
+                       int(li_p))
     wave_max_abs = float((film_k - film_p).abs().max())
     # Other ranges and a second launch of the same kernel: lanes land on
     # other threads and refill in another order, and nothing may show.
@@ -1507,7 +1787,7 @@ def main(only_train=False):
     dkw = wave_args(dflag, 1)
     film_dp = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
     t0 = time.perf_counter()
-    it_dp, nc_dp = mk.render_wave_plain(film=film_dp, pixels=range(0, n), **dkw)
+    it_dp, nc_dp, li_dp = mk.render_wave_plain(film=film_dp, pixels=range(0, n), **dkw, return_lane_iters=True)
     torch.cuda.synchronize()
     dense_wave_plain_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
@@ -1527,6 +1807,8 @@ def main(only_train=False):
         film_statistic(film_d, int(nc_d), film_dp, int(nc_dp), f"render_wave flagship wave, dense instantiation "
                        f"({form} arrays; longest lane {int(it_d)} vs {int(it_dp)})")
         wave_max_abs_d = float((film_d - film_dp).abs().max())
+        lane_iters_d = (lane_iters_check(mk, film_d, dict(wave_args(dsc, 1), pixels=range(0, n)), li_dp,
+                                         f"flagship wave, dense ({form} arrays)"), int(li_dp))
         film_same = bool(torch.equal(film_d, film_k))
         print(f"render_wave flagship wave ({form} arrays): dense film bitwise equal to the packed kernel's "
               f"{film_same}; max_abs_err against the plain version {wave_max_abs_d:.3e}")
@@ -1557,7 +1839,8 @@ def main(only_train=False):
               f"({form} arrays)")
         film_statistic(d_contrib, int(d_nc), film_d, int(nc_d), f"render_rays_wave against render_wave, unpacked, "
                        f"{form} arrays")
-        dense[form] = dict(wave_rep=wave_rep_d, wave_max_abs=wave_max_abs_d, trace_ms=trace_ms,
+        dense[form] = dict(wave_rep=wave_rep_d, wave_max_abs=wave_max_abs_d, lane_iters=lane_iters_d,
+                           trace_ms=trace_ms,
                            trace_bound=(t_bound_ms, t_bound_by), trace_launches=trace_launches_d,
                            step_max_abs=dense_step_max_abs[form])
         del film_d, sf_d, si_d, d_contrib, dsc
@@ -1857,14 +2140,24 @@ def main(only_train=False):
     phase("9 train")
     train_kernels = train_phase(card, dev)
     record_summary()
+
+    # ------------------------------------------------------------------
+    phase("10 mesh")
+    sharded = mesh_phase(card, dev)
+    for k in train_kernels:
+        k["launches_sharded"] = sharded["record" if k["name"] == "record_lanes" else "replay"]
     print(card)
     source = "volume_path_tracer_tpu_torch/csrc/trace_lanes.cu"
     replaces = "volume_path_tracer_tpu/render/megakernel.py:617"
     record = {"kernels": [
+        # launches: the flagship main path's; launches_sharded: the sharded
+        # path's (phase 10); lane_iters: the counting instantiation's count
+        # of the flagship wave against the plain version's
         {"name": "render_wave", "route": "cuda", "source": source, "replaces": replaces,
-         "launches": flag_counts["render_wave"], "max_abs_err": wave_max_abs, "ms": wave_rep["ms"],
+         "launches": flag_counts["render_wave"],
+         "launches_sharded": sharded["render_wave"], "max_abs_err": wave_max_abs, "ms": wave_rep["ms"],
          "plain_ms": wave_plain_ms, "bound_ms": wave_rep["bound_ms"], "bound_by": wave_rep["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "lane_iters": wave_lane_iters[0], "lane_iters_plain": wave_lane_iters[1]},
         {"name": "trace_lanes", "route": "cuda", "source": source, "replaces": replaces,
          "launches": trace_launches, "max_abs_err": one_step_max_abs, "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
@@ -1875,9 +2168,11 @@ def main(only_train=False):
         # the own arrays); times, errors and bounds on the flagship wave.
         *({"name": f"render_wave_dense{suffix}", "route": "cuda", "source": source, "replaces": replaces,
            "launches": dflag_counts["render_wave_padded"] if form == "padded" else dcloud_own_launches,
+           "launches_sharded": sharded[f"render_wave_dense{suffix}"],
            "max_abs_err": dense[form]["wave_max_abs"], "ms": dense[form]["wave_rep"]["ms"],
            "plain_ms": dense_wave_plain_ms, "bound_ms": dense[form]["wave_rep"]["bound_ms"],
-           "bound_by": dense[form]["wave_rep"]["bound_by"], "library_ms": None}
+           "bound_by": dense[form]["wave_rep"]["bound_by"], "library_ms": None,
+           "lane_iters": dense[form]["lane_iters"][0], "lane_iters_plain": dense[form]["lane_iters"][1]}
           for form, suffix in (("padded", ""), ("own", "_own"))),
         *({"name": f"trace_lanes_dense{suffix}", "route": "cuda", "source": source, "replaces": replaces,
            "launches": dense[form]["trace_launches"], "max_abs_err": dense[form]["step_max_abs"],
@@ -2040,4 +2335,6 @@ if __name__ == "__main__":
         sys.exit(variants(sys.argv[2:]))
     if sys.argv[1:2] == ["--compare"]:
         sys.exit(compare(sys.argv[2] if len(sys.argv) > 2 else REPO))
-    sys.exit(main(only_train=sys.argv[1:] == ["--phase", "9"]))
+    if sys.argv[1:2] == ["--phase"]:
+        sys.exit(main(only=sys.argv[2]) if sys.argv[2:] in (["9"], ["10"]) else 2)
+    sys.exit(main())

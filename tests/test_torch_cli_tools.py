@@ -12,7 +12,8 @@
   are truncated to u8, so a value at an integer boundary can show as one
   level; found on the three cases here, integer and fractional shrink
   factors: no pixel differs);
-- --profile DIR writes a chrome trace; --mesh 2 is fatal, --mesh 1 renders;
+- --profile DIR writes a chrome trace; --cpu --mesh 2 (two cells on the
+  CPU) writes the PNG of --mesh 1 byte for byte, --mesh 0 is fatal;
 - make_step(collect_debug=True): the JAX step's keys, and values equal on one
   mid-flight state at the step's tolerance (rtol=1e-5, atol=1e-6 on more
   than 99% of lanes, tests/test_torch_integrator.py), and the default path
@@ -235,14 +236,18 @@ def test_profile_writes_a_trace(tmp_path, capsys):
 
 
 def test_mesh_1_renders_and_mesh_2_is_fatal(tmp_path, capsys):
+    """--mesh 2 shards the waves over two CPU cells: the PNG is --mesh 1's,
+    byte for byte; --mesh 0 stays fatal."""
     cfg = _write_scene(tmp_path)
-    out = tmp_path / "out.png"
-    assert cli.main([cfg, str(out), "--cpu", "--mesh", "1", "--waves", "1"]) == 0
-    assert out.exists()
+    out1, out2 = tmp_path / "out1.png", tmp_path / "out2.png"
+    assert cli.main([cfg, str(out1), "--cpu", "--mesh", "1", "--waves", "2"]) == 0
+    assert cli.main([cfg, str(out2), "--cpu", "--mesh", "2", "--waves", "2"]) == 0
+    assert "sharding rays over {'rays': 2, 'spp': 1} cells" in capsys.readouterr().err
+    assert out1.read_bytes() == out2.read_bytes()
     with pytest.raises(SystemExit) as e:
-        cli.main([cfg, str(tmp_path / "no.png"), "--cpu", "--mesh", "2"])
+        cli.main([cfg, str(tmp_path / "no.png"), "--cpu", "--mesh", "0"])
     assert e.value.code == 1
-    assert "multi-GPU rendering is not ported yet" in capsys.readouterr().err
+    assert "the device count must be at least 1" in capsys.readouterr().err
     assert not (tmp_path / "no.png").exists()
 
 

@@ -306,8 +306,9 @@ def test_c_signatures_match_the_kernel_source():
         ret, params = declared[name]
         assert _ctypes_kind(restype) == ret, name
         assert [_ctypes_kind(t) for t in argtypes] == params, name
-    # the four launches end with the same table arguments
-    for name in ("vpt_trace_lanes", "vpt_render_wave", "vpt_record_lanes", "vpt_replay_lanes"):
+    # the five launches end with the same table arguments
+    for name in ("vpt_trace_lanes", "vpt_render_wave", "vpt_render_wave_counted", "vpt_record_lanes",
+                 "vpt_replay_lanes"):
         assert tuple(tmk.C_SIGNATURES[name][1][-len(tmk._TABLES):]) == tmk._TABLES
 
 

@@ -31,6 +31,7 @@ from volume_path_tracer_tpu.utils.spectral import blackbody_xyz_table
 from volume_path_tracer_tpu_torch.diff import inverse as tinv
 from volume_path_tracer_tpu_torch.models.camera import Camera
 from volume_path_tracer_tpu_torch.models.medium import medium_from_numpy
+from volume_path_tracer_tpu_torch.parallel.shard import make_mesh
 from volume_path_tracer_tpu_torch.render import integrator as tint
 from volume_path_tracer_tpu_torch.render import megakernel as tmk
 
@@ -274,5 +275,4 @@ def test_train_step_on_cpu(pack):
     with torch.no_grad():
         sq, n = loss_fn(tinv.OptimizableGrids(before), *args, (3, 1))
     assert float(loss) == pytest.approx(float(sq) / n, rel=1e-6)
-    with pytest.raises(NotImplementedError, match="multi-GPU training is not ported yet"):
-        tinv.make_train_step(tmed, tprm, tcam, tbb, mesh=object())
+    assert callable(tinv.make_train_step(tmed, tprm, tcam, tbb, mesh=make_mesh(2, devices=["cpu"] * 2)))

@@ -310,7 +310,9 @@ def test_kernel_source_has_the_dense_instantiations():
     assert "template <bool kTap, int kDense>" in source
     for form in ("kPacked", "kDenseOwn", "kDensePadded"):
         assert f"pick_kernel<{form}>(kind, tap)" in source
-    assert "render_wave_kernel<true, kDense>" in source and "render_wave_kernel<false, kDense>" in source
+    assert "render_wave_kernel<true, kDense, false>" in source and "render_wave_kernel<false, kDense, false>" in source
+    # and the counting wave (return_lane_iters), which has no measuring twin
+    assert "render_wave_kernel<false, kDense, true>" in source and "render_wave_kernel<true, kDense, true>" not in source
     assert "trace_lanes_kernel<true, kDense, false>" in source and "trace_lanes_kernel<false, kDense, false>" in source
     # the record and replay kernels of the gradient path have theirs too,
     # each with its measuring twin
@@ -325,5 +327,6 @@ def test_kernel_source_has_the_dense_instantiations():
     # both dot8 spell out one fusion order, so dense and packed sum alike
     assert source.count("__fmaf_rn(a.x, w[0], __fmul_rn(a.y, w[1]))") == 1
     assert source.count("__fmaf_rn(v[0], w[0], __fmul_rn(v[1], w[1]))") == 1
-    # the C interface carries the three new arrays to all four launches
-    assert source.count("const float* dens, int n_dens, const float* maj, int n_maj") == 5
+    # the C interface carries the three new arrays to all five launches
+    # (and through set_tables and launch_wave)
+    assert source.count("const float* dens, int n_dens, const float* maj, int n_maj") == 7

@@ -9,7 +9,9 @@ progress line (percent, ETA, rays/s), an optional preview PNG at wave
 boundaries or a live ANSI preview in the terminal (--live), wave-boundary
 checkpoints (resumed when present), a graceful first ^C that finishes the
 wave and saves, and an optional torch.profiler trace of the wave loop
-(--profile DIR).
+(--profile DIR). With more than one CUDA device, or --mesh N, each wave is
+sharded over a mesh of devices (parallel/shard.py render_wave_sharded); the
+film is bitwise the one-device film. --cpu --mesh N lays N cells on the CPU.
 
 Volume loading: reads the scene's .nvdb through the package's own NanoVDB
 parser (grids/nvdb.py). `--procedural {donut,sphere,plume}` substitutes an
@@ -98,14 +100,14 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU (default: the CUDA device)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="shard rays over N devices (only 1 is supported yet)")
+                    help="shard rays over N devices (default: every CUDA "
+                         "device when there are several; with --cpu, N "
+                         "cells on the CPU)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the render to DIR")
     args = ap.parse_args(argv)
-    if args.mesh is not None and args.mesh != 1:
-        if args.mesh < 1:
-            vlog.fatal(f"--mesh {args.mesh}: the device count must be at least 1")
-        vlog.fatal("multi-GPU rendering is not ported yet (--mesh 1 or no flag renders on one device)")
+    if args.mesh is not None and args.mesh < 1:
+        vlog.fatal(f"--mesh {args.mesh}: the device count must be at least 1")
 
     from .io.png import write_png
     from .render.renderer import Scene, render_wave_image
@@ -119,9 +121,18 @@ def main(argv=None):
         cfg = read_configuration(args.config)
     except ConfigError as e:
         vlog.fatal(str(e))
+    mesh = _mesh(args.mesh, device)
     medium = _load_medium(cfg, args.procedural, device)
     scene = Scene.from_config(cfg, medium, max_iters=args.max_iters, device=device)
     num_waves = args.waves if args.waves is not None else cfg.num_waves
+    batch = None
+    if mesh is not None:
+        from .parallel.shard import pad_ray_batch
+
+        batch = pad_ray_batch(scene.width, scene.height, mesh.shape["rays"])
+        vlog.info(f"sharding rays over {mesh.shape} cells")
+        if args.chunk_pixels:
+            vlog.warn("--chunk-pixels is ignored on a mesh: each cell renders its whole shard")
 
     start_wave = 0
     film = torch.zeros((scene.height, scene.width, 4), dtype=torch.float32, device=device)
@@ -217,9 +228,12 @@ def main(argv=None):
         while w < num_waves:
             w += 1
             t_wave = time.perf_counter()
-            film, ncap_w = render_wave_image(
-                scene, w, film, args.chunk_pixels, chunk_callback=chunk_cb, return_ncap=True
-            )
+            if mesh is not None:
+                film, ncap_w = _render_wave_sharded(scene, mesh, batch, w, film)
+            else:
+                film, ncap_w = render_wave_image(
+                    scene, w, film, args.chunk_pixels, chunk_callback=chunk_cb, return_ncap=True
+                )
             ncap_total = ncap_total + ncap_w
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -267,6 +281,37 @@ def main(argv=None):
     print(flush=True)
     vlog.info(f"saved {args.output}")
     return 0
+
+
+def _mesh(n, device):
+    """The mesh of --mesh n (None: one device). By default every CUDA device
+    when there are several; more than the visible devices is fatal; on the
+    CPU, n cells there."""
+    from .parallel.shard import make_mesh
+
+    if device.type == "cpu":
+        return make_mesh(n, devices=[device] * n) if n and n > 1 else None
+    n_dev = torch.cuda.device_count()
+    if n is not None and n > n_dev:
+        vlog.fatal(f"--mesh {n} exceeds the {n_dev} visible CUDA device(s) (--cpu --mesh {n} lays "
+                   f"{n} cells on the CPU)")
+    n = n or n_dev
+    return make_mesh(n) if n > 1 else None
+
+
+def _render_wave_sharded(scene, mesh, batch, wave, film):
+    """One wave over the mesh added to the film: (film, n_capped). batch:
+    pad_ray_batch's arrays, the same every wave (their shard plan is made
+    once)."""
+    from .parallel.shard import render_wave_sharded
+
+    H, W = scene.height, scene.width
+    coords, pids, npix = batch
+    contrib, n_capped, _ = render_wave_sharded(
+        mesh, scene.medium, scene.params, scene.camera, scene.bb_table,
+        coords, pids, scene.seed, wave, scene.use_jitter,
+    )
+    return film + contrib[:npix].reshape(H, W, 4), n_capped
 
 
 if __name__ == "__main__":

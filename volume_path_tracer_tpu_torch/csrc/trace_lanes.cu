@@ -45,6 +45,8 @@
 //                       id alone (jitter draw, camera ray, world -> index,
 //                       box clip) and ends as one 16-byte read-add-write of
 //                       the film: no per-lane state crosses device memory.
+//                       Its kCount instantiation also sums the lanes'
+//                       lane-iterations (a work count, the same on any mesh).
 //   trace_lanes_kernel  state in, state out (SoA sf/si), for arbitrary ray
 //                       batches and for max_steps = 1, the one-step check.
 //                       Its kRecord instantiation is the forward of the
@@ -150,6 +152,8 @@ constexpr unsigned FULL = 0xffffffffu;
 // The jitter draw's counter: one no tracing step reaches (render/renderer.py).
 constexpr uint32_t JITTER_CTR = 0x7fffffffu;
 constexpr int MAX_DEVICES = 16;
+// Ints of a launch's scratch (Args::scratch); render/megakernel.py SCRATCH_INTS.
+constexpr int SCRATCH_INTS = 6;
 
 // Float parameters (render/megakernel.py names this layout).
 enum FParam {
@@ -189,7 +193,9 @@ struct Args {
   float4* film;
   int n, max_steps, start;
   uint32_t stream;
-  int* scratch;  // [0] the queue's head, [1] n_capped, [2] largest lane counter
+  // [0] the queue's head, [1] n_capped, [2] largest lane counter, [3]
+  // unused, [4..5] the wave's lane-iterations as one unsigned 64-bit word
+  int* scratch;
   const float* rows;
   int n_rows, row_w;
   const float* trows;
@@ -1156,13 +1162,18 @@ enum Kind {
   kTraceKind,   // trace_lanes_kernel: SoA state in, state out
   kRecordKind,  // trace_lanes_kernel<., ., true>: born from world rays, recording NEE walks
   kReplayKind,  // replay_lanes_kernel: the backward replay, born from world rays
+  kWaveCountKind,  // render_wave_kernel<., ., true>: the wave, counting lane-iterations
+  kNumKinds,
 };
 
 // The warp loop of every kernel. A lane runs until it is done or has taken
 // a.max_steps steps in this launch.
 template <int kKind, bool kTap, int kDense>
 __device__ __forceinline__ void warp_loop(const Args& a) {
-  constexpr bool kWave = kKind == kWaveKind;
+  constexpr bool kWave = kKind == kWaveKind || kKind == kWaveCountKind;
+  // Only the counting wave carries the lane-iterations: the others keep
+  // the code and registers they have without it.
+  constexpr bool kCount = kKind == kWaveCountKind;
   constexpr int kDoneMode = kKind == kReplayKind ? RDONE : DONE;
   const unsigned lane_id = threadIdx.x & 31u;
   const unsigned below = (1u << lane_id) - 1u;
@@ -1171,6 +1182,7 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
   int q = 0, steps_left = 0;
   bool idle = true, drained = false;
   int capped = 0, max_ctr = 0;
+  unsigned lane_iters = 0;
   unsigned long long warp_steps = 0, t_first = 0;
   unsigned busy_steps = 0;
   if (kTap) t_first = global_timer();
@@ -1233,6 +1245,9 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
           add_to_film(L, a);
           capped += L.mode != DONE;
           max_ctr = max(max_ctr, L.ctr);
+          // The lane was alive after each of its steps but a last one that
+          // retired it: integrator.lane_iterations, summed over the wave.
+          if (kCount) lane_iters += (unsigned)L.ctr - (L.mode == DONE);
         } else if constexpr (kKind == kReplayKind) {
           finish_replay(L, q, a);
         } else if constexpr (kKind == kRecordKind) {
@@ -1250,9 +1265,12 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
   if (kWave) {
     capped = __reduce_add_sync(FULL, capped);
     max_ctr = __reduce_max_sync(FULL, max_ctr);
+    if (kCount) lane_iters = __reduce_add_sync(FULL, lane_iters);
     if (lane_id == 0) {
       if (capped) atomicAdd(a.scratch + 1, capped);
       if (max_ctr) atomicMax(a.scratch + 2, max_ctr);
+      if (kCount && lane_iters)
+        atomicAdd(reinterpret_cast<unsigned long long*>(a.scratch + 4), (unsigned long long)lane_iters);
     }
   }
   if (kTap) {
@@ -1267,9 +1285,10 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
   }
 }
 
-template <bool kTap, int kDense>
+// kCount: the counting instantiation (vpt_render_wave_counted).
+template <bool kTap, int kDense, bool kCount>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) render_wave_kernel(const Args a) {
-  warp_loop<kWaveKind, kTap, kDense>(a);
+  warp_loop<kCount ? kWaveCountKind : kWaveKind, kTap, kDense>(a);
 }
 
 // kRecord: the record instantiation, the forward of the gradient path.
@@ -1288,7 +1307,11 @@ using Kernel = void (*)(const Args);
 template <int kDense>
 Kernel pick_kernel(int kind, bool tap) {
   switch (kind) {
-    case kWaveKind: return tap ? render_wave_kernel<true, kDense> : render_wave_kernel<false, kDense>;
+    case kWaveKind: return tap ? render_wave_kernel<true, kDense, false> : render_wave_kernel<false, kDense, false>;
+    // No measuring twin counts: a measuring launch of the counting wave is refused.
+    case kWaveCountKind:
+      if (tap) return nullptr;
+      return render_wave_kernel<false, kDense, true>;
     case kTraceKind: return tap ? trace_lanes_kernel<true, kDense, false> : trace_lanes_kernel<false, kDense, false>;
     case kRecordKind: return tap ? trace_lanes_kernel<true, kDense, true> : trace_lanes_kernel<false, kDense, true>;
     default: return tap ? replay_lanes_kernel<true, kDense> : replay_lanes_kernel<false, kDense>;
@@ -1307,8 +1330,10 @@ Kernel pick_kernel(int kind, bool tap, int dense) {
 // Blocks the device holds resident for `kernel` (resident blocks per SM
 // times the SM count, both asked of the runtime and kept per device).
 cudaError_t resident_blocks(int kind, bool tap, int dense, int device, int* blocks) {
-  static int resident[MAX_DEVICES][4][2][3];
-  if (device < 0 || device >= MAX_DEVICES || dense < kPacked || dense > kDensePadded) return cudaErrorInvalidValue;
+  static int resident[MAX_DEVICES][kNumKinds][2][3];
+  if (device < 0 || device >= MAX_DEVICES || kind < 0 || kind >= kNumKinds || dense < kPacked ||
+      dense > kDensePadded || pick_kernel(kind, tap, dense) == nullptr)
+    return cudaErrorInvalidValue;
   int& kept = resident[device][kind][tap][dense];
   if (kept == 0) {
     int per_sm = 0, sms = 0;
@@ -1327,7 +1352,7 @@ int launch(int kind, int device, void* stream, const Args& a) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  err = cudaMemsetAsync(a.scratch, 0, 3 * sizeof(int), s);
+  err = cudaMemsetAsync(a.scratch, 0, SCRATCH_INTS * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   if (a.n <= 0) return 0;
   const bool tap = a.tap != nullptr;
@@ -1369,6 +1394,23 @@ void set_tables(Args& a, const float* rows, int n_rows, int row_w, const float* 
   for (int k = 0; k < NUM_IPARAMS; ++k) a.p.i[k] = ip[k];
 }
 
+// The wave launches of the C interface (vpt_render_wave).
+int launch_wave(int kind, int device, void* stream, float* film, const int* pids, int start, int n,
+                unsigned int stream_word, int max_steps,
+                const float* rows, int n_rows, int row_w,
+                const float* trows, int n_trows, const float* bb_pairs,
+                const float* dens, int n_dens, const float* maj, int n_maj,
+                const float* tdata, int n_tdata,
+                const float* fp, const int* ip, int* scratch,
+                unsigned char* tap, unsigned long long* stat) {
+  Args a{};
+  a.film = reinterpret_cast<float4*>(film); a.pids = pids; a.start = start;
+  a.n = n; a.max_steps = max_steps; a.stream = stream_word;
+  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
+             fp, ip, scratch, tap, stat);
+  return launch(kind, device, stream, a);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1386,7 +1428,7 @@ int vpt_num_iparams() { return NUM_IPARAMS; }
 // (X + 2) * (Y + 2) * (Z + 2) floats), maj: [n_maj, 2] (brick, superbrick) majorant
 // pairs, tdata: [n_tdata] (the temperature array in the same form, flat)
 // or null.
-// scratch: 3 ints on the device, zeroed here on the stream. tap: null, or given for the measuring instantiation, and then
+// scratch: SCRATCH_INTS (6) ints on the device, 8-byte aligned, zeroed here on the stream. tap: null, or given for the measuring instantiation, and then
 // stat may be given too (see Args).
 
 // Advance every lane of (sf [21, n] float32, si [3, n] int32, SoA) until
@@ -1418,12 +1460,23 @@ int vpt_render_wave(int device, void* stream, float* film, const int* pids, int 
                     const float* tdata, int n_tdata,
                     const float* fp, const int* ip, int* scratch,
                     unsigned char* tap, unsigned long long* stat) {
-  Args a{};
-  a.film = reinterpret_cast<float4*>(film); a.pids = pids; a.start = start;
-  a.n = n; a.max_steps = max_steps; a.stream = stream_word;
-  set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
-             fp, ip, scratch, tap, stat);
-  return launch(kWaveKind, device, stream, a);
+  return launch_wave(kWaveKind, device, stream, film, pids, start, n, stream_word, max_steps, rows, n_rows, row_w,
+                     trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata, fp, ip, scratch, tap, stat);
+}
+
+// vpt_render_wave, and scratch[4..5] gets the wave's lane-iterations (a
+// uint64: each retired lane's counter, less one where an event retired it;
+// integrator.lane_iterations). tap must be null.
+int vpt_render_wave_counted(int device, void* stream, float* film, const int* pids, int start, int n,
+                            unsigned int stream_word, int max_steps,
+                            const float* rows, int n_rows, int row_w,
+                            const float* trows, int n_trows, const float* bb_pairs,
+                            const float* dens, int n_dens, const float* maj, int n_maj,
+                            const float* tdata, int n_tdata,
+                            const float* fp, const int* ip, int* scratch,
+                            unsigned char* tap, unsigned long long* stat) {
+  return launch_wave(kWaveCountKind, device, stream, film, pids, start, n, stream_word, max_steps, rows, n_rows, row_w,
+                     trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata, fp, ip, scratch, tap, stat);
 }
 
 // The record instantiation of trace_lanes_kernel, the forward of the

@@ -7,22 +7,26 @@ and the replay kernel backward) and compares the per-pixel mean with the
 target; the train step divides the gradient by the loss's count and hands
 it to torch.optim.Adam, the update optax.adam makes (its rounding order
 differs). Checkpoints keep the JAX package's file layout, so a checkpoint
-crosses packages in both directions. Sharded training (the JAX package's
-`mesh=`) is not ported yet.
+crosses packages in both directions. With a mesh (parallel/shard.py) each
+cell takes a rays shard and an 'spp' wave, and the gradients and the loss
+are summed over every cell before the update.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..grids.grid import pack_corner_rows
 from ..grids.majorant import build_majorants
 from ..models.camera import Camera
 from ..models.medium import Medium, pack_fused_rows, padded_copies
+from ..parallel.shard import Mesh, to_device, tree_sum
 from ..render.integrator import IntegratorParams, trace_rays_diff
 from ..render.megakernel import JITTER_COUNTER
 from ..utils import rng as vrng
@@ -212,25 +216,34 @@ def make_train_step(
     bb_table,
     n_iters: int = 512,
     use_jitter: bool = True,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     samples_per_step: int = 4,
     use_prb: bool = True,
     pack: bool = False,
     dual_buffer: bool = False,
 ):
     """step(grids, opt, raster, pids, target_px, seed_wave) -> (grids, opt,
-    loss) on one device: the loss's gradient over its count into
-    torch.optim.Adam (`opt`, from make_optimizer over `grids`' tensors, which
-    are updated in place). `loss` is a 0-d tensor; nothing waits for the
-    device. dual_buffer: see make_render_loss. mesh: sharded training is not
-    ported yet.
+    loss): the loss's gradient over its count into torch.optim.Adam (`opt`,
+    from make_optimizer over `grids`' tensors, which are updated in place).
+    `loss` is a 0-d tensor; nothing waits for the device. dual_buffer: see
+    make_render_loss.
+
+    With a mesh (the counterpart of the JAX package's shard_map step) the
+    batch's N rows split into R contiguous shards (N a multiple of R); cell
+    (r, s) takes shard r at seed-wave (seed, wave * S + s) on its device,
+    and its own backward gives its gradients on the grids' device. The
+    gradients and the squared error are summed over this process's cells
+    (shard.tree_sum), then across processes (torch.distributed.all_reduce),
+    before the update: loss = sum / n and gradient / n, n the count over
+    every cell.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU training is not ported yet (leave mesh unset to train on one device)")
-    loss_fn = make_render_loss(
-        base_medium, params, camera, bb_table, n_iters, use_jitter,
+    make_loss = functools.partial(
+        make_render_loss, params=params, n_iters=n_iters, use_jitter=use_jitter,
         samples_per_step=samples_per_step, use_prb=use_prb, pack=pack, dual_buffer=dual_buffer,
     )
+    if mesh is not None:
+        return _sharded_train_step(mesh, base_medium, camera, bb_table, make_loss)
+    loss_fn = make_loss(base_medium, camera=camera, bb_table=bb_table)
 
     def train_step(grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px, seed_wave):
         opt.zero_grad(set_to_none=True)
@@ -241,5 +254,48 @@ def make_train_step(
             p.grad = torch.zeros_like(p) if p.grad is None else p.grad.div_(n)
         opt.step()
         return grids, opt, sq.detach() / n
+
+    return train_step
+
+
+def _sharded_train_step(mesh: Mesh, base_medium: Medium, camera: Camera, bb_table, make_loss):
+    R, S = mesh.shape["rays"], mesh.shape["spp"]
+    losses = {}  # device -> the loss of a cell there, over the scene's copies on it
+
+    def cell_loss(dev):
+        key = str(dev)
+        if key not in losses:
+            losses[key] = make_loss(to_device(base_medium, dev), camera=to_device(camera, dev),
+                                    bb_table=to_device(bb_table, dev))
+        return losses[key]
+
+    def train_step(grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px, seed_wave):
+        opt.zero_grad(set_to_none=True)
+        leaves = grid_leaves(grids)
+        n_rays = pids.shape[0]
+        if n_rays % R:
+            raise ValueError(f"{n_rays} pixels do not split into {R} 'rays' shards (pad the batch)")
+        per = n_rays // R
+        seed, wave = int(seed_wave[0]), int(seed_wave[1])
+        sqs, grads = [], []
+        for r, s, dev in mesh.local_cells():
+            rows = slice(r * per, (r + 1) * per)
+            cell_grids = OptimizableGrids(*(None if x is None else x.to(dev) for x in grids))
+            sq, _ = cell_loss(dev)(cell_grids, raster[rows].to(dev), pids[rows].to(dev), target_px[rows].to(dev),
+                                   (seed, (wave * S + s) & 0xFFFFFFFF))
+            g = torch.autograd.grad(sq, leaves, allow_unused=True)
+            sqs.append(sq.detach().to(leaves[0].device))
+            # optax updates a leaf with no gradient as one with a zero gradient
+            grads.append([torch.zeros_like(p) if gi is None else gi for gi, p in zip(g, leaves)])
+        sq = tree_sum(sqs)
+        total = [tree_sum(col) for col in zip(*grads)]
+        if mesh.spans_processes:
+            for t in (sq, *total):
+                dist.all_reduce(t)
+        n = float(per * 3 * mesh.size)
+        for p, g in zip(leaves, total):
+            p.grad = g.div_(n)
+        opt.step()
+        return grids, opt, sq / n
 
     return train_step

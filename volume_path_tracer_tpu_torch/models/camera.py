@@ -75,6 +75,18 @@ class Camera:
         trans = c2w @ (s2c_lin @ r2s_t + s2c_t)
         return Camera.from_numpy(pos, lin, trans, p.imaging_ratio, device=device)
 
+    @property
+    def device(self) -> torch.device:
+        return self.position.device
+
+    def to(self, device) -> "Camera":
+        """The camera with its tensors on `device`."""
+        return dataclasses.replace(
+            self, position=self.position.to(device),
+            raster_to_world_dir=self.raster_to_world_dir.to(device),
+            raster_to_world_trans=self.raster_to_world_trans.to(device),
+        )
+
     def generate_rays(self, raster_xy: torch.Tensor, jitter: torch.Tensor):
         """Batch ray generation.
 

@@ -25,7 +25,7 @@ import torch
 
 from ..grids.grid import DenseGrid, _pack_columns, dense_grid_from_array, pack_corner_rows, with_padded_copy
 from ..grids.majorant import MajorantPyramid, build_majorants
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, resolve_device, same_device
 
 
 def temperature_on_density_grid(density: DenseGrid, temperature: Optional[DenseGrid]):
@@ -101,6 +101,32 @@ class Medium:
     @property
     def device(self) -> torch.device:
         return self.density.device
+
+    def to(self, device) -> "Medium":
+        """The medium on `device` (itself when it is there already): every
+        table copied, and for a medium without the fused table the grids'
+        padded copies made again where padded_copies makes them on that
+        device, as Medium.from_grids there would."""
+        dev = torch.device(device)
+        if same_device(self.device, dev):
+            return self
+
+        def move(t):
+            return None if t is None else t.to(dev)
+
+        density = self.density.to(dev)
+        temperature = self.temperature.to(dev) if self.temperature is not None else None
+        if self.density_rows is None:
+            density, temperature = padded_copies(density, temperature)
+        m = self.majorants
+        return Medium(
+            density=density,
+            majorants=dataclasses.replace(m, brick_maj=move(m.brick_maj), super_maj=move(m.super_maj),
+                                          rows=move(m.rows)),
+            temperature=temperature,
+            density_rows=move(self.density_rows),
+            temperature_rows=move(self.temperature_rows),
+        )
 
     @staticmethod
     def from_grids(

@@ -540,6 +540,18 @@ def count_capped(st: RayState) -> torch.Tensor:
     return (st.mode != DONE).sum()
 
 
+def lane_iterations(st: RayState) -> torch.Tensor:
+    """The lane-iterations of a loop that ended in `st` (0-d int64): over the
+    loop's steps, the lanes alive after each, summed, as the JAX package's
+    trace_rays counts them. A lane is alive after each of its `ctr` steps
+    but a last one that retired it (DONE), so this is the sum of the
+    counters less the lanes that stepped and are DONE. A pure work count:
+    every lane's path is fixed by its counter-keyed draws, so it does not
+    depend on how lanes are split over launches, cells or processes."""
+    stepped_done = (st.mode == DONE) & (st.ctr > 0)
+    return st.ctr.to(torch.int64).sum() - stepped_done.sum()
+
+
 def alive_first_perm(done: torch.Tensor) -> torch.Tensor:
     """Stable alive-first permutation: indices of the alive lanes in order,
     then the done lanes in order."""
@@ -631,12 +643,14 @@ def trace_rays(
     d_world: torch.Tensor,
     pixel_ids: torch.Tensor,
     stream,
+    return_lane_iters: bool = False,
 ):
     """Forward render of a ray batch: the plain step in a loop
     (advance_lanes), up to params.max_iters steps.
 
     Returns (radiance [N, 3], iterations, n_capped), the last two as 0-d
-    tensors (iterations = the largest lane counter).
+    tensors (iterations = the largest lane counter); return_lane_iters=True
+    appends the loop's lane-iterations (lane_iterations).
     """
     st = init_state(medium, o_world, d_world, params)
     N = pixel_ids.shape[0]
@@ -644,6 +658,8 @@ def trace_rays(
     st = advance_lanes(make_step(medium, params, bb_table), st, pixel_ids,
                        lane_streams(stream, N, dev), params.max_iters)
     iters = st.ctr.max().to(torch.int64) if N else torch.zeros((), dtype=torch.int64, device=dev)
+    if return_lane_iters:
+        return finalize_radiance(st, params), iters, count_capped(st), lane_iterations(st)
     return finalize_radiance(st, params), iters, count_capped(st)
 
 

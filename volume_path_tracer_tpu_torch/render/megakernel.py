@@ -96,6 +96,7 @@ from .integrator import (
     finalize_radiance,
     init_state,
     inv_voxel,
+    lane_iterations,
     lane_streams,
     light_constants,
     make_step,
@@ -159,6 +160,8 @@ C_SIGNATURES = {
     "vpt_trace_lanes": (_I, (_I, _P, _P, _P, _P, _P, _I, _I, *_TABLES)),
     # device, stream, film, pids, start, n, stream_word, max_steps
     "vpt_render_wave": (_I, (_I, _P, _P, _P, _I, _I, _U, _I, *_TABLES)),
+    # the same, counting lane-iterations
+    "vpt_render_wave_counted": (_I, (_I, _P, _P, _P, _I, _I, _U, _I, *_TABLES)),
     # device, stream, o_world, o_stride, d_world, pids, streams, n,
     # max_steps, L_out, ctr_out, tf, k_walks
     "vpt_record_lanes": (_I, (_I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, *_TABLES)),
@@ -243,8 +246,8 @@ def _pixel_ids(pixels: Pixels, device) -> torch.Tensor:
 def render_wave_plain(
     medium: Medium, params: IntegratorParams, camera: Camera, bb_table: Optional[torch.Tensor],
     film: torch.Tensor, pixels: Pixels, stream: int, use_jitter: bool, imaging_ratio: float,
-    max_iters: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    max_iters: Optional[int] = None, return_lane_iters: bool = False,
+):
     """render_wave's plain version, by the port's plain functions:
     counter_uniforms (the jitter) -> Camera.generate_rays -> init_state ->
     advance_lanes -> film[pid] += (imaging_ratio * L, 1). Same contract."""
@@ -271,6 +274,8 @@ def render_wave_plain(
     else:
         flat[pids.to(torch.int64)] += contrib
     iters = st.ctr.max() if n else torch.zeros((), dtype=torch.int32, device=dev)
+    if return_lane_iters:
+        return iters, count_capped(st), lane_iterations(st)
     return iters, count_capped(st)
 
 
@@ -419,10 +424,15 @@ class KernelConstants(NamedTuple):
     fp: np.ndarray  # float32, enum FParam order
     ip: np.ndarray  # int32, enum IParam order
     pairs: Optional[torch.Tensor]  # blackbody pair LUT [npairs, 6], emissive media
-    scratch: torch.Tensor  # int32 [3]: queue head, n_capped, largest lane counter
+    scratch: torch.Tensor  # int32 [SCRATCH_INTS]: queue head, n_capped, largest lane counter, -, lane-iterations (int64)
     emission: int  # the kernel's I_EMISSION
     dense: bool  # no fused table: the dense instantiations
 
+
+# Ints of a launch's scratch (csrc/trace_lanes.cu SCRATCH_INTS): the queue's
+# head, n_capped, the largest lane counter, one unused, then render_wave's
+# lane-iterations as one 64-bit word (8-byte aligned).
+SCRATCH_INTS = 6
 
 # key -> (weak references to the keyed objects, KernelConstants)
 _CONSTANTS = {}
@@ -487,7 +497,7 @@ def kernel_constants(
                                        use_jitter, imaging_ratio)
     consts = KernelConstants(
         fp=_flatten(fields_f, np.float32), ip=_flatten(fields_i, np.int32), pairs=pairs,
-        scratch=torch.zeros(3, dtype=torch.int32, device=dev), emission=emission, dense=dense,
+        scratch=torch.zeros(SCRATCH_INTS, dtype=torch.int32, device=dev), emission=emission, dense=dense,
     )
     _CONSTANTS[key] = (tuple(None if o is None else weakref.ref(o) for o in objs), consts)
     if camera is not None:
@@ -652,8 +662,8 @@ def trace_lanes(
     medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor],
     sf: torch.Tensor, si: torch.Tensor, pixel_ids: torch.Tensor, streams: torch.Tensor,
     max_steps: int, row_tap: Optional[torch.Tensor] = None,
-    stat: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    stat: Optional[torch.Tensor] = None, return_lane_iters: bool = False,
+):
     """Advance every lane until DONE or `max_steps` steps; returns new (sf, si).
 
     sf [21, N] float32 and si [3, N] int32 are the SoA state (STATE_F32,
@@ -664,7 +674,20 @@ def trace_lanes(
     its arguments as they were. For measurement (CUDA only): row_tap, a
     zeroed new_row_tap tensor in which the launch marks what it reads of the
     medium (tap_layout), and with it stat, a zeroed launch_stat tensor.
+
+    return_lane_iters=True appends this call's lane-iterations (0-d int64):
+    each lane's steps in the call, less one for a lane the call retired
+    (integrator.lane_iterations), from the counters and modes in and out.
     """
+    out = _trace_lanes(medium, params, bb_table, sf, si, pixel_ids, streams, max_steps, row_tap, stat)
+    if not return_lane_iters:
+        return out
+    si_out = out[1]
+    retired = ((si[1] != DONE) & (si_out[1] == DONE)).sum()
+    return (*out, (si_out[2].to(torch.int64) - si[2].to(torch.int64)).sum() - retired)
+
+
+def _trace_lanes(medium, params, bb_table, sf, si, pixel_ids, streams, max_steps, row_tap, stat):
     if sf.device.type == "cpu":
         return trace_lanes_plain(medium, params, bb_table, sf, si, pixel_ids, streams, max_steps)
     if sf.device.type != "cuda":
@@ -697,8 +720,8 @@ def render_wave(
     medium: Medium, params: IntegratorParams, camera: Camera, bb_table: Optional[torch.Tensor],
     film: torch.Tensor, pixels: Pixels, stream: int, use_jitter: bool, imaging_ratio: float,
     max_iters: Optional[int] = None, row_tap: Optional[torch.Tensor] = None,
-    stat: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    stat: Optional[torch.Tensor] = None, return_lane_iters: bool = False,
+):
     """One sample of each of `pixels`, added to `film` in place.
 
     film: [H, W, 4] float32, contiguous (XYZ sum, sample count). pixels: a
@@ -712,16 +735,22 @@ def render_wave(
     default params.max_iters) adds what it gathered and no infinite light.
 
     Returns (iterations, n_capped) as 0-d int32 tensors: the largest lane
-    counter and the lanes stopped by the cap. No host synchronisation.
+    counter and the lanes stopped by the cap. return_lane_iters=True appends
+    the wave's lane-iterations as a 0-d int64 tensor
+    (integrator.lane_iterations: on the card the kernel's own count, taken
+    by its counting instantiation, which a measuring launch cannot be). No
+    host synchronisation.
 
     On CUDA tensors this launches render_wave_kernel once, or raises; on CPU
     tensors it runs render_wave_plain. row_tap and stat: as in trace_lanes.
     """
     if film.device.type == "cpu":
         return render_wave_plain(medium, params, camera, bb_table, film, pixels, stream,
-                                 use_jitter, imaging_ratio, max_iters)
+                                 use_jitter, imaging_ratio, max_iters, return_lane_iters)
     if film.device.type != "cuda":
         raise ValueError(f"render_wave: unsupported device {film.device}")
+    if return_lane_iters and row_tap is not None:
+        raise ValueError("render_wave: a measuring launch (row_tap) does not count lane-iterations")
     dev = film.device
     if film.dim() != 3 or film.shape[2] != 4:
         raise ValueError(f"film: expected [H, W, 4], got {tuple(film.shape)}")
@@ -742,7 +771,8 @@ def render_wave(
                               imaging_ratio)
     tables = _table_args(medium, consts, dev, row_tap, stat)
     steps = params.max_iters if max_iters is None else max_iters
-    err = _library().vpt_render_wave(
+    launch = _library().vpt_render_wave_counted if return_lane_iters else _library().vpt_render_wave
+    err = launch(
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
         film.data_ptr(), _ptr(pids), start, n, int(stream) & 0xFFFFFFFF, int(steps), *tables,
     )
@@ -752,6 +782,9 @@ def render_wave(
     DENSE_WAVE_LAUNCHES += consts.dense
     PADDED_WAVE_LAUNCHES += _reads_padded(medium, consts)
     # The scratch belongs to the next launch too: hand out a copy.
+    if return_lane_iters:
+        out = consts.scratch.clone()
+        return out[2], out[1], out[4:6].view(torch.int64)[0]
     out = consts.scratch[1:3].clone()
     return out[1], out[0]
 
@@ -1049,18 +1082,20 @@ def trace_rays_fused(
     d_world: torch.Tensor,
     pixel_ids: torch.Tensor,
     stream,
+    return_lane_iters: bool = False,
 ):
     """Forward render of a ray batch through trace_lanes; same contract as
-    integrator.trace_rays: (radiance [N, 3], iterations, n_capped), the last
-    two as 0-d tensors (iterations = the largest lane counter). No host
-    synchronisation."""
+    integrator.trace_rays: (radiance [N, 3], iterations, n_capped[,
+    lane_iterations]), the counts as 0-d tensors (iterations = the largest
+    lane counter). No host synchronisation."""
     st0 = init_state(medium, o_world, d_world, params)
     sf, si = pack_state(st0)
     n = sf.shape[1]
     streams = lane_streams(stream, n, sf.device)
-    sf, si = trace_lanes(medium, params, bb_table, sf, si, pixel_ids, streams, params.max_iters)
+    sf, si, *lane_it = trace_lanes(medium, params, bb_table, sf, si, pixel_ids, streams, params.max_iters,
+                                   return_lane_iters=return_lane_iters)
     L = sf[10:13].T
     if n == 0:
         zero = torch.zeros((), dtype=torch.int64, device=sf.device)
-        return L, zero, zero
-    return L, si[2].max().to(torch.int64), (si[1] != DONE).sum()
+        return (L, zero, zero, *lane_it)
+    return (L, si[2].max().to(torch.int64), (si[1] != DONE).sum(), *lane_it)
