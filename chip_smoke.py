@@ -87,14 +87,22 @@ Phases, each stopping the run with a non-zero exit on failure:
               card over gloo (films bitwise equal, rays/s); the
               inverse-rendering example at its defaults, density and
               --joint (train steps/s, recovery)
+ 11. bench    the port's bench (python -m volume_path_tracer_tpu_torch.bench):
+              its primary at bench.py's full size (flagship, 256x256, 16
+              waves, best of 5 passes) through render_wave_kernel alone, its
+              film bitwise render's and its rays/s within BENCH_RTOL of
+              phase 4's render part; its JSON line; then the flagship half
+              of its --verify (the plain version against the kernel, every
+              gate)
 
 The line before the last is the kernels' JSON record (launches on the main
-path, error against the plain version, times and bound); the last line is
+path, launches_bench in the bench's primary, error against the plain
+version, times and bound); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. Images and the CLI's
 scene file go to chip_smoke_out/ (listed in .gitignore).
 
-Other modes: --phase 9, --phase 10 (phases 1, 2 and that one alone, no
-result lines);
+Other modes: --phase 9, --phase 10, --phase 11 (phases 1, 2 and that one
+alone, no result lines);
 --compare [DIR] (the port in the checkout DIR with its own code: the wave
 cells packed and dense, the gradient kernels and the three train cells, so
 that a parent commit unpacked with git archive and this one compare on one
@@ -489,7 +497,8 @@ def render_passes(scene, reps, png_path):
 def main_path(scene, passes, png_path, what, card):
     """Drive the main path `passes` times with every launch counter set to 0
     just before and read just after; check that it went through the wave
-    kernel alone, and that the film is finite with weights == waves."""
+    kernel alone, and that the film is finite with weights == waves. Returns
+    (pass seconds, rays/s, n_capped, launches, render-part rays/s)."""
     import torch
 
     from volume_path_tracer_tpu_torch.render import megakernel as mk
@@ -497,6 +506,7 @@ def main_path(scene, passes, png_path, what, card):
 
     reset_launch_counts(mk)
     times, render_times, film, img = render_passes(scene, passes, png_path)
+    render_rays_s = scene.width * scene.height * scene.num_waves / min(render_times)
     counts = dict(render_wave=mk.WAVE_LAUNCHES, trace_lanes=mk.LAUNCHES,
                   render_wave_plain=mk.PLAIN_WAVE_LAUNCHES, trace_lanes_plain=mk.PLAIN_LAUNCHES,
                   render_wave_dense=mk.DENSE_WAVE_LAUNCHES, render_wave_padded=mk.PADDED_WAVE_LAUNCHES)
@@ -522,7 +532,7 @@ def main_path(scene, passes, png_path, what, card):
           f"{what}: the main path ran a plain version")
     check(finite and weights_ok, f"{what}: film is not finite or has wrong weights")
     check(img.max() > 0, f"{what}: image is black")
-    return times, rays_s, ncap, counts
+    return times, rays_s, ncap, counts, render_rays_s
 
 
 # bench.py's train cells (bench.py:287-304, :336-352), rebuilt on the port:
@@ -1399,6 +1409,78 @@ def mesh_phase(card, dev):
     return launches
 
 
+# Phase 11: the bench's primary and phase 4 time the same 16 flagship waves
+# through the same kernel, so their rays/s may differ only by the host work
+# around the launches.
+BENCH_RTOL = 0.10
+# The launch counters of render.megakernel that the bench's primary may move
+# (the wave kernel) and those it must leave at 0.
+BENCH_COUNTERS = ("WAVE_LAUNCHES", "DENSE_WAVE_LAUNCHES", "PADDED_WAVE_LAUNCHES", "LAUNCHES", "DENSE_LAUNCHES",
+                  "PADDED_LAUNCHES", "RECORD_LAUNCHES", "REPLAY_LAUNCHES", "DENSE_RECORD_LAUNCHES",
+                  "DENSE_REPLAY_LAUNCHES", "PLAIN_WAVE_LAUNCHES", "PLAIN_LAUNCHES", "PLAIN_RECORD_LAUNCHES",
+                  "PLAIN_REPLAY_LAUNCHES")
+
+
+def bench_phase(card, dev, build_s, render_rays_s=None):
+    """Phase 11: the port's bench (volume_path_tracer_tpu_torch/bench.py) on
+    the card. Its primary at bench.py's full size, with every launch counter
+    set to 0 just before and read just after: its waves go through
+    render_wave_kernel alone, its film is bitwise the main path's (render) on
+    the same medium and waves, and its rays/s is within BENCH_RTOL of phase
+    4's render-part rays/s (render_rays_s; measured here the same way when
+    phase 4 did not run). Prints the bench's JSON line. Then the flagship
+    half of the bench's --verify with every gate. Returns the primary's
+    launches of each kernel, named as in the kernels line."""
+    import torch
+
+    from volume_path_tracer_tpu_torch import bench
+    from volume_path_tracer_tpu_torch.grids.procedural import fog_sphere
+    from volume_path_tracer_tpu_torch.models.medium import Medium
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+    from volume_path_tracer_tpu_torch.render.renderer import Scene, render
+    from volume_path_tracer_tpu_torch.utils.config import loads_configuration
+
+    flag = Scene.from_config(loads_configuration(json.dumps(WDAS_SCENE)),
+                             Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0)), max_iters=FLAGSHIP_MAX_ITERS)
+    if render_rays_s is None:
+        png = os.path.join(OUT_DIR, "flagship.png")
+        render_passes(flag, 1, png)  # warm-up, as phase 4
+        render_rays_s = main_path(flag, 3, png, "flagship", card)[4]
+    reset_launch_counts(mk)
+    t0 = time.perf_counter()
+    res = bench.bench_primary(dev)
+    primary_s = time.perf_counter() - t0
+    counts = {name: getattr(mk, name) for name in BENCH_COUNTERS}
+    line = bench.primary_line(res, bench.card(dev), round(build_s, 2))
+    main_film = render(flag)
+    same = bool(torch.equal(res.film, main_film))
+    ratio = res.rays_per_s / render_rays_s
+    print(f"bench primary: {res.rays_per_s:.1f} rays/s (best of 5 passes of 16 waves, {primary_s:.2f} s with the "
+          f"medium's build), phase 4's render part {render_rays_s:.1f} rays/s (ratio {ratio:.4f}); launches "
+          f"{json.dumps(counts)}; n_capped {res.n_capped}; film bitwise equal to render's {same} on {card}")
+    print(json.dumps(line), flush=True)
+    waves = 16 * 6  # the warm-up pass and 5 timed passes
+    check(counts["WAVE_LAUNCHES"] == waves and all(v == 0 for k, v in counts.items() if k != "WAVE_LAUNCHES"),
+          f"the bench's primary did not go through render_wave_kernel alone: {counts}")
+    check(same, "the bench's film differs from the main path's film of the same waves")
+    check(abs(ratio - 1.0) <= BENCH_RTOL,
+          f"the bench's rays/s is {ratio:.4f} of phase 4's render part, beyond {BENCH_RTOL}")
+    del res, main_film, flag
+
+    t0 = time.perf_counter()
+    medium, camera = bench._flagship(dev)
+    v = bench.verify_scene({}, "", medium, camera, bench._wdas_params())
+    print(f"bench --verify, flagship half ({time.perf_counter() - t0:.1f} s): every gate held on {card}")
+    print(json.dumps(v), flush=True)
+    return {"render_wave": counts["WAVE_LAUNCHES"] - counts["DENSE_WAVE_LAUNCHES"],
+            "trace_lanes": counts["LAUNCHES"] - counts["DENSE_LAUNCHES"],
+            "render_wave_dense": counts["PADDED_WAVE_LAUNCHES"],
+            "render_wave_dense_own": counts["DENSE_WAVE_LAUNCHES"] - counts["PADDED_WAVE_LAUNCHES"],
+            "trace_lanes_dense": counts["PADDED_LAUNCHES"],
+            "trace_lanes_dense_own": counts["DENSE_LAUNCHES"] - counts["PADDED_LAUNCHES"],
+            "record_lanes": counts["RECORD_LAUNCHES"], "replay_lanes": counts["REPLAY_LAUNCHES"]}
+
+
 def compare(repo_dir):
     """python3 chip_smoke.py --compare [DIR]
 
@@ -1458,8 +1540,8 @@ def compare(repo_dir):
 
 
 def main(only=None):
-    """The whole run; only="9" or "10" (--phase 9, --phase 10): phases 1, 2
-    and that phase, printing no kernels line and no result line."""
+    """The whole run; only="9", "10" or "11" (--phase 9, 10, 11): phases 1,
+    2 and that phase, printing no kernels line and no result line."""
     import torch
 
     phase("1 device")
@@ -1528,6 +1610,11 @@ def main(only=None):
     if only == "10":
         phase("10 mesh")
         print("mesh launches: " + json.dumps(mesh_phase(card, dev)))
+        print(card)
+        return 0
+    if only == "11":
+        phase("11 bench")
+        print("bench launches: " + json.dumps(bench_phase(card, dev, nvcc_s)))
         print(card)
         return 0
 
@@ -1654,7 +1741,7 @@ def main(only=None):
     phase("4 flagship main path")
     png = os.path.join(OUT_DIR, "flagship.png")
     render_passes(flag, 1, png)  # warm-up: first-call allocations and caches
-    times, flag_rays_s, ncap, flag_counts = main_path(flag, 3, png, "flagship", card)
+    times, flag_rays_s, ncap, flag_counts, flag_render_rays_s = main_path(flag, 3, png, "flagship", card)
     check(ncap == 0, f"{ncap} flagship rays truncated at the step cap")
     flag_best_s = min(times)
 
@@ -1848,7 +1935,7 @@ def main(only=None):
           f"{dense['own']['wave_rep']['ms']:.4f} ms (padded / own "
           f"{dense['padded']['wave_rep']['ms'] / dense['own']['wave_rep']['ms']:.3f}) on {card}")
     # the unpacked main path (render -> tonemap -> PNG)
-    _, dflag_rays_s, dncap, dflag_counts = main_path(dflag, 2, os.path.join(OUT_DIR, "flagship_unpacked.png"),
+    _, dflag_rays_s, dncap, dflag_counts, _ = main_path(dflag, 2, os.path.join(OUT_DIR, "flagship_unpacked.png"),
                                                      "flagship unpacked", card)
     check(dncap == 0, f"{dncap} unpacked flagship rays truncated at the step cap")
     del film_k, film_p, film_dp, sf_k, si_k, sf_p, si_p, sf_dp, si_dp, dflag
@@ -1874,7 +1961,7 @@ def main(only=None):
         sc = Scene.from_config(fire_cfg, med, max_iters=FIRE_MAX_ITERS)
         png = os.path.join(OUT_DIR, f"fire_{width}{'' if width == 'unpacked' else 'wide'}.png")
         render(sc, num_waves=1)  # warm-up: the blackbody table, first-call allocations
-        times, fire_rays_s[width], _, _ = main_path(sc, 2, png, label, card)
+        times, fire_rays_s[width], _, _, _ = main_path(sc, 2, png, label, card)
         fire_reps[width] = wave_kernel_report(sc, label, card)
         if width == 16:
             profile_pass(sc, os.path.join(OUT_DIR, "fire_16wide_profiled.png"), min(times), "fire 16-wide")
@@ -1918,7 +2005,7 @@ def main(only=None):
     cloud_cfg = loads_configuration(json.dumps(cloud_cfg))
     cloud_scene = Scene.from_config(cloud_cfg, cloud_med, max_iters=FLAGSHIP_MAX_ITERS)
     png = os.path.join(OUT_DIR, "big_cloud_512.png")
-    _, cloud_rays_s, _, _ = main_path(cloud_scene, 2, png, "big_cloud 512^3", card)
+    _, cloud_rays_s, _, _, _ = main_path(cloud_scene, 2, png, "big_cloud 512^3", card)
     peak = torch.cuda.max_memory_allocated()
     print(f"big_cloud 512^3: {'load from cache' if cached else 'generate'} {gen_s:.1f} s, medium "
           f"build {build_s:.2f} s, table {tuple(cloud_med.density_rows.shape)} = "
@@ -1981,7 +2068,7 @@ def main(only=None):
     resident = torch.cuda.memory_allocated() - before
     check(dense_form(cloud_dense) == "own", "the unpacked 512^3 medium keeps a padded copy")
     dcloud_scene = Scene.from_config(cloud_cfg, cloud_dense, max_iters=FLAGSHIP_MAX_ITERS)
-    _, dcloud_rays_s, dcloud_ncap, dcloud_counts = main_path(
+    _, dcloud_rays_s, dcloud_ncap, dcloud_counts, _ = main_path(
         dcloud_scene, 2, os.path.join(OUT_DIR, "big_cloud_512_unpacked.png"), "big_cloud 512^3 unpacked", card)
     check(dcloud_ncap == 0, f"{dcloud_ncap} unpacked 512^3 rays truncated at max_iters {FLAGSHIP_MAX_ITERS}")
     dcloud_own_launches = dcloud_counts["render_wave_dense"] - dcloud_counts["render_wave_padded"]
@@ -2146,6 +2233,10 @@ def main(only=None):
     sharded = mesh_phase(card, dev)
     for k in train_kernels:
         k["launches_sharded"] = sharded["record" if k["name"] == "record_lanes" else "replay"]
+
+    # ------------------------------------------------------------------
+    phase("11 bench")
+    bench_launches = bench_phase(card, dev, nvcc_s, flag_render_rays_s)
     print(card)
     source = "volume_path_tracer_tpu_torch/csrc/trace_lanes.cu"
     replaces = "volume_path_tracer_tpu/render/megakernel.py:617"
@@ -2183,6 +2274,9 @@ def main(only=None):
         # cells, times and bounds on the full density step.
         *train_kernels,
     ]}
+    # launches_bench: each kernel's launches in the bench's primary (phase 11)
+    for k in record["kernels"]:
+        k["launches_bench"] = bench_launches[k["name"]]
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -2336,5 +2430,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--compare"]:
         sys.exit(compare(sys.argv[2] if len(sys.argv) > 2 else REPO))
     if sys.argv[1:2] == ["--phase"]:
-        sys.exit(main(only=sys.argv[2]) if sys.argv[2:] in (["9"], ["10"]) else 2)
+        sys.exit(main(only=sys.argv[2]) if sys.argv[2:] in (["9"], ["10"], ["11"]) else 2)
     sys.exit(main())
