@@ -1,0 +1,7 @@
+"""Device idle milliseconds a train step while the host was inside the
+step's train.backward spans, averaged over the cards."""
+from benchmark import spans
+
+
+def read(run):
+    return spans.phase_idle_ms(run, "backward")

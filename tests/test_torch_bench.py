@@ -9,9 +9,8 @@ bench.py (the JAX package's benchmark), on the CPU at small sizes.
 - (d) the plain-against-kernel gates (bench.agreement) on seeded arrays;
 - (e) the primary, --full's train cells and --render1024's CLI path at a
   tiny size: the documented keys with finite values, the files under OUT;
-- (f) a tiny --cpu run writes under --out alone, leaves bench.py and every
-  BENCH_*.json as they were, and reads vs_baseline as null off the
-  recorded card;
+- (f) a tiny --cpu run writes under --out alone and leaves bench.py and
+  every BENCH_*.json as they were;
 - (g) without --cpu and without CUDA the bench raises before any work.
 
 The root bench.py is loaded with importlib; it imports JAX only inside its
@@ -49,7 +48,7 @@ TINY = {
     "verify": dict(size=16, timed_waves=1, reps=1, compared_waves=2, fire_iters=64),
     "render1024": dict(size=16, waves=2, chunk=128),
 }
-PRIMARY_KEYS = {"metric", "value", "unit", "vs_baseline", "method", "pass_times_s", "device", "build_s"}
+PRIMARY_KEYS = {"metric", "value", "unit", "method", "pass_times_s", "device", "build_s"}
 
 
 @pytest.fixture(scope="module")
@@ -161,7 +160,7 @@ def test_primary_tiny():
     assert set(line) == PRIMARY_KEYS
     assert line["unit"] == "rays/s/GPU" and line["metric"] == bench.METRIC
     assert np.isfinite(line["value"]) and line["value"] > 0 and len(line["pass_times_s"]) == 1
-    assert line["device"] == {"name": "cpu", "power_limit": None} and line["vs_baseline"] is None
+    assert line["device"] == {"name": "cpu", "power_limit": None}
     film = res.film.numpy()
     assert film.shape == (16, 16, 4) and np.isfinite(film).all() and (film[..., 3] == 2).all()
     assert film[..., :3].max() > 0 and res.n_capped == 0
@@ -223,7 +222,7 @@ def test_cpu_run_writes_under_out_only(tmp_path, monkeypatch, capsys):
     assert _files(out) == ["bench_extra.json", "bench_verify.json", "big_cloud_32.npy", "render1024/ck.npz",
                            "render1024/out.png", "render1024/preview.png", "render1024/scene1024.json"]
     primary = lines[1]  # --full prints its record, then the primary's line
-    assert set(primary) == PRIMARY_KEYS and primary["vs_baseline"] is None
+    assert set(primary) == PRIMARY_KEYS
     with open(out / "bench_extra.json") as f:
         extra = json.load(f)
     # --render1024's keys merged over --full's
@@ -236,15 +235,6 @@ def test_cpu_run_writes_under_out_only(tmp_path, monkeypatch, capsys):
     with open(out / "bench_verify.json") as f:
         verify = json.load(f)
     assert verify["lane_close_fraction"] == verify["fire_lane_close_fraction"] == 1.0
-
-
-def test_vs_baseline_only_on_the_recorded_card(tmp_path):
-    path = str(tmp_path / "baseline.json")
-    assert bench.vs_baseline(100.0, {"name": "cpu"}, path) is None  # no record
-    with open(path, "w") as f:
-        json.dump({"rays_per_s": 50.0, "device": {"name": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"}}, f)
-    assert bench.vs_baseline(100.0, {"name": "cpu", "power_limit": None}, path) is None
-    assert bench.vs_baseline(100.0, {"name": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"}, path) == 2.0
 
 
 def test_raises_without_cuda_unless_cpu(tmp_path, monkeypatch):

@@ -235,6 +235,22 @@ def test_profile_writes_a_trace(tmp_path, capsys):
     assert read_png(str(out)).max() > 0
 
 
+def test_profile_trace_covers_set_up_and_waves(tmp_path):
+    """The profiler starts before the medium loads: the trace holds the
+    build's span and each wave's, on a mesh the sharded wave's too."""
+    for extra, wave in (([], "render.wave"), (["--mesh", "2"], "shard.wave")):
+        prof_dir = tmp_path / ("prof" + "".join(extra))
+        rc = cli.main([_write_scene(tmp_path), str(tmp_path / "out.png"), "--cpu", "--waves", "2",
+                       "--profile", str(prof_dir), *extra])
+        assert rc == 0
+        events = json.loads((prof_dir / "trace.json").read_text())["traceEvents"]
+        starts = {}
+        for e in events:
+            starts.setdefault(e.get("name"), []).append(float(e.get("ts", 0)))
+        assert len(starts.get("medium.build", [])) == 1 and len(starts.get(wave, [])) == 2
+        assert starts["medium.build"][0] < min(starts[wave])
+
+
 def test_mesh_1_renders_and_mesh_2_is_fatal(tmp_path, capsys):
     """--mesh 2 shards the waves over two CPU cells: the PNG is --mesh 1's,
     byte for byte; --mesh 0 stays fatal."""

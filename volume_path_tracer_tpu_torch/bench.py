@@ -6,7 +6,7 @@ configuration, on the CUDA device.
 The counterpart of the repository's root bench.py (the JAX package's
 benchmark): the same modes, scenes, sizes, timing method and JSON keys, run
 through the port's entry points. Prints ONE JSON line: {"metric", "value",
-"unit", "vs_baseline", "method", "pass_times_s", "device", "build_s"}.
+"unit", "method", "pass_times_s", "device", "build_s"}.
 
 Metric: rays/s on one GPU on the wdas_cloud configuration at 256x256 @ 16
 spp. "Rays" counts camera rays (pixel samples); each ray's full transport
@@ -24,11 +24,6 @@ and its seconds are reported as build_s. Then one warm-up pass and `reps`
 timed passes of all waves; every timed pass ends in a forced device-to-host
 read of the film's checksum, which is what waits for the device. The best
 pass is the number; every pass is recorded.
-
-vs_baseline divides by bench_baseline.json beside this module: the port's
-first recorded run on the card, never a TPU number. It is null when the file
-is missing or records another card. The bench reads that file and never
-writes it.
 
 --full (-> OUT/bench_extra.json): the 512^3 cloud packed and unpacked, the
 fire max_iters sweep, the aligned and the low-scattering fire, the density
@@ -73,7 +68,6 @@ from .utils.spectral import blackbody_xyz_table
 
 METRIC = "wdas_cloud-like 256x256@16spp camera-ray throughput"
 UNIT = "rays/s/GPU"
-BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_baseline.json")
 DEFAULT_OUT = "bench_torch_out"
 SEED = 10
 
@@ -163,18 +157,6 @@ def build_kernels(dev) -> Optional[float]:
     return round(time.perf_counter() - t0, 2)
 
 
-def vs_baseline(rays_per_s: float, device: dict, path: str = BASELINE) -> Optional[float]:
-    """rays_per_s over the recorded baseline's, or None when the record is
-    missing or was taken on a card of another name."""
-    if not os.path.exists(path):
-        return None
-    with open(path) as f:
-        base = json.load(f)
-    if base["device"]["name"] != device["name"]:
-        return None
-    return round(rays_per_s / base["rays_per_s"], 4)
-
-
 def _reset_peak(dev):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -256,7 +238,6 @@ def primary_line(res: Throughput, device: dict, build_s, waves=16, reps=5) -> di
         "metric": METRIC,
         "value": round(res.rays_per_s, 1),
         "unit": UNIT,
-        "vs_baseline": vs_baseline(res.rays_per_s, device),
         "method": (
             f"best of {reps} transfer-forced passes of {waves} waves, one render_wave launch a "
             f"{res.film.shape[0] * res.film.shape[1]}-lane wave into one film on the device; the kernel "

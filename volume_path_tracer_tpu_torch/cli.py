@@ -8,10 +8,11 @@ Renders on the CUDA device (--cpu for the CPU), wave by wave, with a
 progress line (percent, ETA, rays/s), an optional preview PNG at wave
 boundaries or a live ANSI preview in the terminal (--live), wave-boundary
 checkpoints (resumed when present), a graceful first ^C that finishes the
-wave and saves, and an optional torch.profiler trace of the wave loop
-(--profile DIR). With more than one CUDA device, or --mesh N, each wave is
-sharded over a mesh of devices (parallel/shard.py render_wave_sharded); the
-film is bitwise the one-device film. --cpu --mesh N lays N cells on the CPU.
+wave and saves, and an optional torch.profiler trace of the set-up and the
+wave loop, with the port's spans (--profile DIR). With more than one CUDA
+device, or --mesh N, each wave is sharded over a mesh of devices
+(parallel/shard.py render_wave_sharded); the film is bitwise the one-device
+film. --cpu --mesh N lays N cells on the CPU.
 
 Volume loading: reads the scene's .nvdb through the package's own NanoVDB
 parser (grids/nvdb.py). `--procedural {donut,sphere,plume}` substitutes an
@@ -104,7 +105,8 @@ def main(argv=None):
                          "device when there are several; with --cpu, N "
                          "cells on the CPU)")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler trace of the render to DIR")
+                    help="write a torch.profiler trace of the set-up and the render "
+                         "(with the port's spans) to DIR")
     args = ap.parse_args(argv)
     if args.mesh is not None and args.mesh < 1:
         vlog.fatal(f"--mesh {args.mesh}: the device count must be at least 1")
@@ -122,6 +124,19 @@ def main(argv=None):
     except ConfigError as e:
         vlog.fatal(str(e))
     mesh = _mesh(args.mesh, device)
+    # The trace covers the set-up too (the port's spans medium.build,
+    # kernel.build, shard.copy), then the waves.
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(args.profile, exist_ok=True)
+        prof = profile(activities=activities)
+        prof.start()
+
     medium = _load_medium(cfg, args.procedural, device)
     scene = Scene.from_config(cfg, medium, max_iters=args.max_iters, device=device)
     num_waves = args.waves if args.waves is not None else cfg.num_waves
@@ -211,17 +226,6 @@ def main(argv=None):
             else:
                 print(f"\r{status}   ", end="", flush=True)
             last_paint = time.monotonic()
-
-    prof = None
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        os.makedirs(args.profile, exist_ok=True)
-        prof = profile(activities=activities)
-        prof.start()
 
     with StopController() as stop:
         w = start_wave

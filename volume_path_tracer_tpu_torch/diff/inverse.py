@@ -30,6 +30,7 @@ from ..parallel.shard import Mesh, to_device, tree_sum
 from ..render.integrator import IntegratorParams, trace_rays_diff
 from ..render.megakernel import JITTER_COUNTER
 from ..utils import rng as vrng
+from ..utils.spans import span
 from .prb import trace_rays_prb
 
 
@@ -190,9 +191,11 @@ def make_render_loss(
         params = dataclasses.replace(params, max_iters=n_iters)
 
     def loss_fn(grids: OptimizableGrids, raster, pids, target_px, seed_wave):
-        medium = medium_with_params(base_medium, grids, pack=pack and use_prb)
+        with span("train.rebuild"):
+            medium = medium_with_params(base_medium, grids, pack=pack and use_prb)
         n = pids.shape[0]
-        o_w, d_w, pids_k, stream_k = loss_rays(camera, raster, pids, seed_wave, k, use_jitter)
+        with span("train.rays"):
+            o_w, d_w, pids_k, stream_k = loss_rays(camera, raster, pids, seed_wave, k, use_jitter)
         if use_prb:
             L = trace_rays_prb(medium, params, bb_table, o_w, d_w, pids_k, stream_k)
         else:
@@ -246,14 +249,18 @@ def make_train_step(
     loss_fn = make_loss(base_medium, camera=camera, bb_table=bb_table)
 
     def train_step(grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px, seed_wave):
-        opt.zero_grad(set_to_none=True)
-        sq, n = loss_fn(grids, raster, pids, target_px, seed_wave)
-        sq.backward()
-        for p in grid_leaves(grids):
-            # optax updates a leaf with no gradient as one with a zero gradient
-            p.grad = torch.zeros_like(p) if p.grad is None else p.grad.div_(n)
-        opt.step()
-        return grids, opt, sq.detach() / n
+        with span("train.step"):
+            with span("train.optimizer"):
+                opt.zero_grad(set_to_none=True)
+            sq, n = loss_fn(grids, raster, pids, target_px, seed_wave)
+            with span("train.backward"):
+                sq.backward()
+            with span("train.optimizer"):
+                for p in grid_leaves(grids):
+                    # optax updates a leaf with no gradient as one with a zero gradient
+                    p.grad = torch.zeros_like(p) if p.grad is None else p.grad.div_(n)
+                opt.step()
+            return grids, opt, sq.detach() / n
 
     return train_step
 
@@ -270,32 +277,36 @@ def _sharded_train_step(mesh: Mesh, base_medium: Medium, camera: Camera, bb_tabl
         return losses[key]
 
     def train_step(grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px, seed_wave):
-        opt.zero_grad(set_to_none=True)
-        leaves = grid_leaves(grids)
-        n_rays = pids.shape[0]
-        if n_rays % R:
-            raise ValueError(f"{n_rays} pixels do not split into {R} 'rays' shards (pad the batch)")
-        per = n_rays // R
-        seed, wave = int(seed_wave[0]), int(seed_wave[1])
-        sqs, grads = [], []
-        for r, s, dev in mesh.local_cells():
-            rows = slice(r * per, (r + 1) * per)
-            cell_grids = OptimizableGrids(*(None if x is None else x.to(dev) for x in grids))
-            sq, _ = cell_loss(dev)(cell_grids, raster[rows].to(dev), pids[rows].to(dev), target_px[rows].to(dev),
-                                   (seed, (wave * S + s) & 0xFFFFFFFF))
-            g = torch.autograd.grad(sq, leaves, allow_unused=True)
-            sqs.append(sq.detach().to(leaves[0].device))
-            # optax updates a leaf with no gradient as one with a zero gradient
-            grads.append([torch.zeros_like(p) if gi is None else gi for gi, p in zip(g, leaves)])
-        sq = tree_sum(sqs)
-        total = [tree_sum(col) for col in zip(*grads)]
-        if mesh.spans_processes:
-            for t in (sq, *total):
-                dist.all_reduce(t)
-        n = float(per * 3 * mesh.size)
-        for p, g in zip(leaves, total):
-            p.grad = g.div_(n)
-        opt.step()
-        return grids, opt, sq / n
+        with span("train.step"):
+            with span("train.optimizer"):
+                opt.zero_grad(set_to_none=True)
+            leaves = grid_leaves(grids)
+            n_rays = pids.shape[0]
+            if n_rays % R:
+                raise ValueError(f"{n_rays} pixels do not split into {R} 'rays' shards (pad the batch)")
+            per = n_rays // R
+            seed, wave = int(seed_wave[0]), int(seed_wave[1])
+            sqs, grads = [], []
+            for r, s, dev in mesh.local_cells():
+                rows = slice(r * per, (r + 1) * per)
+                cell_grids = OptimizableGrids(*(None if x is None else x.to(dev) for x in grids))
+                sq, _ = cell_loss(dev)(cell_grids, raster[rows].to(dev), pids[rows].to(dev),
+                                       target_px[rows].to(dev), (seed, (wave * S + s) & 0xFFFFFFFF))
+                with span("train.backward"):
+                    g = torch.autograd.grad(sq, leaves, allow_unused=True)
+                sqs.append(sq.detach().to(leaves[0].device))
+                # optax updates a leaf with no gradient as one with a zero gradient
+                grads.append([torch.zeros_like(p) if gi is None else gi for gi, p in zip(g, leaves)])
+            sq = tree_sum(sqs)
+            total = [tree_sum(col) for col in zip(*grads)]
+            if mesh.spans_processes:
+                for t in (sq, *total):
+                    dist.all_reduce(t)
+            n = float(per * 3 * mesh.size)
+            with span("train.optimizer"):
+                for p, g in zip(leaves, total):
+                    p.grad = g.div_(n)
+                opt.step()
+            return grids, opt, sq / n
 
     return train_step

@@ -69,6 +69,7 @@ from ..render.integrator import (
     sample_temperature_kelvin,
 )
 from ..utils import rng as vrng
+from ..utils.spans import span
 from ..utils.spectral import blackbody_radiation_xyz_value_grad
 
 # Replay lane modes.
@@ -525,13 +526,15 @@ class _PathReplay(torch.autograd.Function):
             # too: its counters order the replay's queue. Without NEE there
             # is no walk to record.
             k = k_walks if params.nee_enabled else 0
-            L, tf, ctr = record_lanes(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k)
+            with span("prb.record"):
+                L, tf, ctr = record_lanes(medium, params, bb_table, o_world, d_world, pixel_ids, stream, k)
             if k == 0:
                 tf = None
         else:
             # The same sample bit for bit: the record kernel starts its lanes
             # as init_state does (record_lanes).
-            L, _, _ = trace_rays_fused(medium, params, bb_table, o_world, d_world, pixel_ids, stream)
+            with span("prb.record"):
+                L, _, _ = trace_rays_fused(medium, params, bb_table, o_world, d_world, pixel_ids, stream)
         L = L.contiguous()
         ctx.medium, ctx.params, ctx.bb_table, ctx.stream = medium, params, bb_table, stream
         ctx.has_temp = temp_data is not None
@@ -546,9 +549,10 @@ class _PathReplay(torch.autograd.Function):
         L, tf, ctr, o_world, d_world, pixel_ids = ctx.saved_tensors
         # The kernel's queue takes the longest lanes first; the plain replay
         # steps every lane at once and takes no order.
-        order = longest_first(ctr) if ctr.is_cuda else None
-        d_density, d_temp = replay_lanes(ctx.medium, ctx.params, ctx.bb_table, o_world, d_world,
-                                         pixel_ids, ctx.stream, L, g_vec.contiguous(), tf=tf, order=order)
+        with span("prb.replay"):
+            order = longest_first(ctr) if ctr.is_cuda else None
+            d_density, d_temp = replay_lanes(ctx.medium, ctx.params, ctx.bb_table, o_world, d_world,
+                                             pixel_ids, ctx.stream, L, g_vec.contiguous(), tf=tf, order=order)
         if not ctx.has_temp:
             d_temp = None
         elif d_temp is None:  # a temperature grid that emits nothing

@@ -26,6 +26,7 @@ import torch
 from ..grids.grid import DenseGrid, _pack_columns, dense_grid_from_array, pack_corner_rows, with_padded_copy
 from ..grids.majorant import MajorantPyramid, build_majorants
 from ..utils.device import DeviceLike, resolve_device, same_device
+from ..utils.spans import span
 
 
 def temperature_on_density_grid(density: DenseGrid, temperature: Optional[DenseGrid]):
@@ -140,32 +141,33 @@ class Medium:
         """Build a medium on `device` (CUDA unless device="cpu"), computing
         majorants and, with pack=True, the fused row table, else, where
         padded_copies says so, the grids' padded copies."""
-        dev = resolve_device(device)
-        density = density.to(dev)
-        temperature = temperature.to(dev) if temperature is not None else None
-        majorants = build_majorants(density, order=order)
-        t_on_d = (
-            temperature_on_density_grid(density, temperature)
-            if (pack and fuse_temperature)
-            else None
-        )
-        rows = pack_fused_rows(density.data, majorants, t_on_d) if pack else None
-        # The separate temperature table is read only when the temperature
-        # is not folded into the fused rows.
-        trows = (
-            pack_corner_rows(temperature.data)
-            if (pack and temperature is not None and t_on_d is None)
-            else None
-        )
-        if not pack:
-            density, temperature = padded_copies(density, temperature)
-        return Medium(
-            density=density,
-            majorants=majorants,
-            temperature=temperature,
-            density_rows=rows,
-            temperature_rows=trows,
-        )
+        with span("medium.build"):
+            dev = resolve_device(device)
+            density = density.to(dev)
+            temperature = temperature.to(dev) if temperature is not None else None
+            majorants = build_majorants(density, order=order)
+            t_on_d = (
+                temperature_on_density_grid(density, temperature)
+                if (pack and fuse_temperature)
+                else None
+            )
+            rows = pack_fused_rows(density.data, majorants, t_on_d) if pack else None
+            # The separate temperature table is read only when the temperature
+            # is not folded into the fused rows.
+            trows = (
+                pack_corner_rows(temperature.data)
+                if (pack and temperature is not None and t_on_d is None)
+                else None
+            )
+            if not pack:
+                density, temperature = padded_copies(density, temperature)
+            return Medium(
+                density=density,
+                majorants=majorants,
+                temperature=temperature,
+                density_rows=rows,
+                temperature_rows=trows,
+            )
 
 
 def padded_copies(density: DenseGrid, temperature: Optional[DenseGrid]):

@@ -39,6 +39,7 @@ from ..render.integrator import IntegratorParams
 from ..render.megakernel import render_wave
 from ..utils import rng as vrng
 from ..utils.device import resolve_device, same_device
+from ..utils.spans import span
 
 
 def process_rank() -> int:
@@ -154,7 +155,8 @@ def to_device(obj, device):
     hit = _COPIES.get(key)
     if hit is not None and hit[0]() is obj:
         return hit[1]
-    copy = obj.to(dev)
+    with span("shard.copy"):
+        copy = obj.to(dev)
     _COPIES[key] = (weakref.ref(obj), copy)
     weakref.finalize(obj, _COPIES.pop, key, None)
     return copy
@@ -256,34 +258,37 @@ def render_wave_sharded(
     the contribution holds this process's cells' rows
     (multihost.gather_film_to_host sums the processes').
     """
-    S = mesh.shape["spp"]
-    plan = ray_plan(raster_xy, pixel_ids, mesh.shape["rays"])
-    home = mesh.home
-    films, counts, rows_of = {}, [], {}
-    for r, s, dev in mesh.local_cells():
-        shard = plan.shards[r]
-        key = (str(dev), s)
-        if key not in films:
-            films[key] = torch.zeros((plan.height, plan.width, 4), dtype=torch.float32, device=dev)
-        rows_of.setdefault(r, []).append(key)
-        if not len(shard.pixels):
-            continue
-        stream = vrng.mix_stream(seed, (wave * S + s) & 0xFFFFFFFF)
-        out = render_wave(to_device(medium, dev), params, to_device(camera, dev), to_device(bb_table, dev),
-                          films[key], shard.pixels, stream, use_jitter, camera.imaging_ratio,
-                          return_lane_iters=return_lane_iters)
-        counts.append(torch.stack([out[1].to(torch.int64), out[0].to(torch.int64), *out[2:]]).to(home))
-    contrib = torch.zeros((len(pixel_ids), 4), dtype=torch.float32, device=home)
-    for r, keys in rows_of.items():
-        shard = plan.shards[r]
-        if len(shard.pixels):
-            contrib[shard.rows] = tree_sum(films[k].view(-1, 4)[shard.pixels.start:shard.pixels.stop].to(home)
-                                           for k in keys)
-    total = torch.stack(counts).sum(0) if counts else torch.zeros(2 + return_lane_iters, dtype=torch.int64,
-                                                                   device=home)
-    if mesh.spans_processes:
-        dist.all_reduce(total)
-    return (contrib, *total.unbind())
+    with span("shard.wave"):
+        S = mesh.shape["spp"]
+        plan = ray_plan(raster_xy, pixel_ids, mesh.shape["rays"])
+        home = mesh.home
+        films, counts, rows_of = {}, [], {}
+        for r, s, dev in mesh.local_cells():
+            with span("shard.cell"):
+                shard = plan.shards[r]
+                key = (str(dev), s)
+                if key not in films:
+                    films[key] = torch.zeros((plan.height, plan.width, 4), dtype=torch.float32, device=dev)
+                rows_of.setdefault(r, []).append(key)
+                if not len(shard.pixels):
+                    continue
+                stream = vrng.mix_stream(seed, (wave * S + s) & 0xFFFFFFFF)
+                out = render_wave(to_device(medium, dev), params, to_device(camera, dev), to_device(bb_table, dev),
+                                  films[key], shard.pixels, stream, use_jitter, camera.imaging_ratio,
+                                  return_lane_iters=return_lane_iters)
+                counts.append(torch.stack([out[1].to(torch.int64), out[0].to(torch.int64), *out[2:]]).to(home))
+        with span("shard.gather"):
+            contrib = torch.zeros((len(pixel_ids), 4), dtype=torch.float32, device=home)
+            for r, keys in rows_of.items():
+                shard = plan.shards[r]
+                if len(shard.pixels):
+                    contrib[shard.rows] = tree_sum(films[k].view(-1, 4)[shard.pixels.start:shard.pixels.stop]
+                                                   .to(home) for k in keys)
+            total = torch.stack(counts).sum(0) if counts else torch.zeros(2 + return_lane_iters, dtype=torch.int64,
+                                                                           device=home)
+            if mesh.spans_processes:
+                dist.all_reduce(total)
+        return (contrib, *total.unbind())
 
 
 def render_film_sharded(

@@ -84,6 +84,7 @@ from ..models.camera import Camera
 from ..models.medium import Medium
 from ..ops.phase import INV_4PI
 from ..utils import rng as vrng
+from ..utils.spans import span
 from ..utils.spectral import RESOLUTION, blackbody_pairs
 from .integrator import (
     DONE,
@@ -316,7 +317,8 @@ def build(source: Optional[str] = None) -> str:
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        with span("kernel.build"):
+            lib = ctypes.CDLL(build())
         for name, (restype, argtypes) in C_SIGNATURES.items():
             # A variant of the source timed by chip_smoke.py --variants may
             # lack a function; it is then never called.
@@ -485,30 +487,30 @@ def kernel_constants(
     hit = _CONSTANTS.get(key)
     if hit is not None and all(r is None if o is None else r() is o for r, o in zip(hit[0], objs)):
         return hit[1]
-    if camera is not None:
-        dense, emission = _layout(medium, params, bb_table)
-
-    dev = medium.device
-    pairs = None
-    if emission:
-        pairs = blackbody_pairs(torch.as_tensor(bb_table, dtype=torch.float32, device=dev)).contiguous()
-    n_pairs = pairs.shape[0] if pairs is not None else 0
-    fields_f, fields_i = _param_fields(medium, params, n_pairs, emission, camera, width,
-                                       use_jitter, imaging_ratio)
-    consts = KernelConstants(
-        fp=_flatten(fields_f, np.float32), ip=_flatten(fields_i, np.int32), pairs=pairs,
-        scratch=torch.zeros(SCRATCH_INTS, dtype=torch.int32, device=dev), emission=emission, dense=dense,
-    )
-    _CONSTANTS[key] = (tuple(None if o is None else weakref.ref(o) for o in objs), consts)
-    if camera is not None:
-        weakref.finalize(medium, _CONSTANTS.pop, key, None)
-    else:
-        if bb_table is not None:
-            weakref.finalize(bb_table, _CONSTANTS.pop, key, None)
-        kept = [k for k in _CONSTANTS if k[0] == "geometry"]
-        for old in kept[:-GEOMETRY_ENTRIES]:
-            _CONSTANTS.pop(old, None)
-    return consts
+    with span("kernel.constants"):
+        if camera is not None:
+            dense, emission = _layout(medium, params, bb_table)
+        dev = medium.device
+        pairs = None
+        if emission:
+            pairs = blackbody_pairs(torch.as_tensor(bb_table, dtype=torch.float32, device=dev)).contiguous()
+        n_pairs = pairs.shape[0] if pairs is not None else 0
+        fields_f, fields_i = _param_fields(medium, params, n_pairs, emission, camera, width,
+                                           use_jitter, imaging_ratio)
+        consts = KernelConstants(
+            fp=_flatten(fields_f, np.float32), ip=_flatten(fields_i, np.int32), pairs=pairs,
+            scratch=torch.zeros(SCRATCH_INTS, dtype=torch.int32, device=dev), emission=emission, dense=dense,
+        )
+        _CONSTANTS[key] = (tuple(None if o is None else weakref.ref(o) for o in objs), consts)
+        if camera is not None:
+            weakref.finalize(medium, _CONSTANTS.pop, key, None)
+        else:
+            if bb_table is not None:
+                weakref.finalize(bb_table, _CONSTANTS.pop, key, None)
+            kept = [k for k in _CONSTANTS if k[0] == "geometry"]
+            for old in kept[:-GEOMETRY_ENTRIES]:
+                _CONSTANTS.pop(old, None)
+        return consts
 
 
 def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor]):
@@ -767,26 +769,27 @@ def render_wave(
         pids = pixels
         _check(pids, "pixels", torch.int32, (pids.shape[0],), dev)
         start, n = 0, pids.shape[0]
-    consts = kernel_constants(medium, params, bb_table, camera, film.shape[1], use_jitter,
-                              imaging_ratio)
-    tables = _table_args(medium, consts, dev, row_tap, stat)
-    steps = params.max_iters if max_iters is None else max_iters
-    launch = _library().vpt_render_wave_counted if return_lane_iters else _library().vpt_render_wave
-    err = launch(
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
-        film.data_ptr(), _ptr(pids), start, n, int(stream) & 0xFFFFFFFF, int(steps), *tables,
-    )
-    _raise_on(err, "render_wave launch")
-    global WAVE_LAUNCHES, DENSE_WAVE_LAUNCHES, PADDED_WAVE_LAUNCHES
-    WAVE_LAUNCHES += 1
-    DENSE_WAVE_LAUNCHES += consts.dense
-    PADDED_WAVE_LAUNCHES += _reads_padded(medium, consts)
-    # The scratch belongs to the next launch too: hand out a copy.
-    if return_lane_iters:
-        out = consts.scratch.clone()
-        return out[2], out[1], out[4:6].view(torch.int64)[0]
-    out = consts.scratch[1:3].clone()
-    return out[1], out[0]
+    with span("render.launch"):
+        consts = kernel_constants(medium, params, bb_table, camera, film.shape[1], use_jitter,
+                                  imaging_ratio)
+        tables = _table_args(medium, consts, dev, row_tap, stat)
+        steps = params.max_iters if max_iters is None else max_iters
+        launch = _library().vpt_render_wave_counted if return_lane_iters else _library().vpt_render_wave
+        err = launch(
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+            film.data_ptr(), _ptr(pids), start, n, int(stream) & 0xFFFFFFFF, int(steps), *tables,
+        )
+        _raise_on(err, "render_wave launch")
+        global WAVE_LAUNCHES, DENSE_WAVE_LAUNCHES, PADDED_WAVE_LAUNCHES
+        WAVE_LAUNCHES += 1
+        DENSE_WAVE_LAUNCHES += consts.dense
+        PADDED_WAVE_LAUNCHES += _reads_padded(medium, consts)
+        # The scratch belongs to the next launch too: hand out a copy.
+        if return_lane_iters:
+            out = consts.scratch.clone()
+            return out[2], out[1], out[4:6].view(torch.int64)[0]
+        out = consts.scratch[1:3].clone()
+        return out[1], out[0]
 
 
 # --------------------------------------------------------- gradient path ----

@@ -29,6 +29,7 @@ from ..utils import logging as vlog
 from ..utils import rng as vrng
 from ..utils.config import Configuration
 from ..utils.device import DeviceLike, resolve_device, same_device
+from ..utils.spans import span
 from ..utils.spectral import blackbody_xyz_table, breakpoints_for_max_temp
 from .integrator import IntegratorParams, emission_enabled, trace_rays_diff
 from .megakernel import JITTER_COUNTER, render_wave, trace_rays_fused
@@ -144,11 +145,17 @@ def render_wave_image(
     and read it once. chunk_callback(pixels_done, pixels_total, film) runs
     after each pixel chunk but the last when the wave is chunked.
     """
+    with span("render.wave"):
+        return _render_wave_image(scene, wave, film, chunk_pixels, chunk_callback, return_ncap)
+
+
+def _render_wave_image(scene, wave, film, chunk_pixels, chunk_callback, return_ncap):
     H, W = scene.height, scene.width
     dev = scene.device
     # A new film: the caller's stays as it was (render_wave adds in place).
-    out = (torch.zeros((H, W, 4), dtype=torch.float32, device=dev) if film is None
-           else film.clone(memory_format=torch.contiguous_format))
+    with span("render.film"):
+        out = (torch.zeros((H, W, 4), dtype=torch.float32, device=dev) if film is None
+               else film.clone(memory_format=torch.contiguous_format))
     stream = vrng.mix_stream(scene.seed, wave)
 
     def wave_of(pixels):
