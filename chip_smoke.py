@@ -61,7 +61,11 @@ Phases, each stopping the run with a non-zero exit on failure:
               small scenes, with media rebuilt by medium_with_params, packed
               and dense (both forms), k_walks 16 and 0, the replay kernel's
               gradient grids (longest-first order) against the plain
-              replay; the full 131,072-lane density step: both kernels
+              replay; loss_rays_kernel (the train step's ray batch)
+              against its plain version, ids, words and jitter bitwise, on
+              the density step's inputs and at the benchmark's 256x256 x 4,
+              with its time and bound; the full 131,072-lane density
+              step: both kernels
               against their plain versions, the accounting invariant on
               every lane, each lane's replayed <g, L> bitwise with and
               without the order, and step 0's lines for both kernels (time,
@@ -434,6 +438,7 @@ def reset_launch_counts(mk):
     mk.RECORD_LAUNCHES = mk.REPLAY_LAUNCHES = mk.PLAIN_RECORD_LAUNCHES = mk.PLAIN_REPLAY_LAUNCHES = 0
     mk.DENSE_RECORD_LAUNCHES = mk.DENSE_REPLAY_LAUNCHES = 0
     mk.PADDED_WAVE_LAUNCHES = mk.PADDED_LAUNCHES = mk.PADDED_RECORD_LAUNCHES = mk.PADDED_REPLAY_LAUNCHES = 0
+    mk.LOSS_RAYS_LAUNCHES = mk.PLAIN_LOSS_RAYS_LAUNCHES = 0
 
 
 def profile_pass(scene, png_path, best_s, what):
@@ -636,6 +641,56 @@ def density_step(dev):
     return med, fog_base, wdas, fog_cam, coords, tpids, rays
 
 
+def loss_rays_report(card, dev, camera, raster, pids, seed_wave, k, what):
+    """loss_rays_kernel (megakernel.loss_rays on CUDA tensors) against
+    loss_rays_plain on the same card inputs: pixel ids, stream words and the
+    jitter uniforms bitwise, origins equal, directions within 1e-6 (the
+    product's rounding order differs); one kernel launch a call and no plain
+    run. Then its device time (CUPTI, kernel_device_ms of 20), the plain
+    version's (host clock, mean of 5 calls after one) and its bound, each
+    byte once: raster and id a pixel and the camera's 48 B read, direction,
+    id and word a lane written, over HBM_BYTES_PER_S. Prints the line and
+    returns (max_abs_err, ms, plain_ms, bound_ms)."""
+    import torch
+
+    from volume_path_tracer_tpu_torch.render import megakernel as mk
+    from volume_path_tracer_tpu_torch.utils import rng as vrng
+
+    n = pids.shape[0]
+    lanes = k * n
+    jit = torch.full((lanes, 2), -1.0, dtype=torch.float32, device=dev)
+    counts = (mk.LOSS_RAYS_LAUNCHES, mk.PLAIN_LOSS_RAYS_LAUNCHES)
+    o, d, p, s = mk.loss_rays(camera, raster, pids, seed_wave, k, True, jitter_out=jit)
+    counts = (mk.LOSS_RAYS_LAUNCHES - counts[0], mk.PLAIN_LOSS_RAYS_LAUNCHES - counts[1])
+    ro, rd, rp, rs = mk.loss_rays_plain(camera, raster, pids, seed_wave, k, True)
+    u = vrng.counter_uniforms(rp, rs, mk.JITTER_COUNTER, 2)
+    same = dict(ids=bool(p.dtype == rp.dtype and torch.equal(p, rp)),
+                words=bool(s.dtype == torch.int32 and torch.equal(s.to(torch.int64) & 0xFFFFFFFF, rs)),
+                jitter=bool(torch.equal(jit.view(torch.int32), u.view(torch.int32))),
+                origins=bool(o.stride(0) == 0 and torch.equal(o, ro)))
+    err = float((d - rd).abs().max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        mk.loss_rays_plain(camera, raster, pids, seed_wave, k, True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 5
+    ms = kernel_device_ms(lambda: mk.loss_rays(camera, raster, pids, seed_wave, k, True), 20, "loss_rays_kernel")
+    read = n * (2 * raster.element_size() + pids.element_size()) + 48
+    written = lanes * (12 + pids.element_size() + 4)
+    bound_ms = (read + written) / HBM_BYTES_PER_S * 1e3
+    print(f"loss_rays kernel, {what} ({n} pixels x {k} = {lanes} lanes, seed-wave {tuple(seed_wave)}, {raster.dtype} "
+          f"raster, {pids.dtype} ids): bitwise equal to the plain version's {same}; directions max abs diff "
+          f"{err:.3e}; launches {counts[0]}, plain runs {counts[1]}; {ms:.5f} ms (device time, mean of the kept "
+          f"records of 3 windows of 20 launches); plain version {plain_ms:.3f} ms (host clock); bound {bound_ms:.5f} "
+          f"ms (bytes: {read} B read, {written} B written) = {bound_ms / ms:.4f} of the kernel's time on {card}",
+          flush=True)
+    check(all(same.values()), f"loss_rays kernel, {what}: not bitwise the plain version's: {same}")
+    check(err <= 1e-6, f"loss_rays kernel, {what}: directions {err} from the plain version's, beyond 1e-6")
+    check(counts == (1, 0), f"loss_rays kernel, {what}: {counts[0]} launches and {counts[1]} plain runs in one call")
+    return err, ms, plain_ms, bound_ms
+
+
 def grad_kernel_times(mk, med, wdas, rays, g, reps=5):
     """(record ms, replay ms) on the density step, CUPTI, mean of `reps`
     each; the replay in the longest-first order, as on the main path."""
@@ -657,8 +712,10 @@ def train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids):
     (best of 3 chains of TRAIN_CHAIN steps), launches, peak memory, and one
     profiled step (device time by kernel, busy share, host calls). Uses only
     what every commit of the port since the gradient path has, so an earlier
-    commit's package can be timed by the same code (--compare). Returns
-    ({"record": launches, "replay": launches}, {cell: summary})."""
+    commit's package can be timed by the same code (--compare); the ray
+    batch's launches are checked where the package has loss_rays_kernel
+    (megakernel.loss_rays). Returns ({"record": launches, "replay":
+    launches, "loss_rays": launches}, {cell: summary})."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -686,7 +743,8 @@ def train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids):
         ("joint density + temperature", joint_base, joint_params, fire_cam, bb, True, True, 5),
     ]
     target = torch.zeros((TRAIN_SIZE * TRAIN_SIZE, 3), dtype=torch.float32, device=dev)
-    launches = {"record": 0, "replay": 0}
+    launches = {"record": 0, "replay": 0, "loss_rays": 0}
+    has_loss_rays = hasattr(mk, "loss_rays")
     summary = {}
     for label, base, prm, cam, bbt, pack, dual, seed in cells:
         grids = inv.OptimizableGrids(
@@ -718,8 +776,13 @@ def train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids):
         dense_want = 0 if pack else n_steps
         check(counts[4] == dense_want and counts[5] == dense_want,
               f"{label}: {counts[4]} / {counts[5]} dense launches, expected {dense_want}")
+        if has_loss_rays:
+            check(mk.LOSS_RAYS_LAUNCHES == n_steps and mk.PLAIN_LOSS_RAYS_LAUNCHES == 0,
+                  f"{label}: {mk.LOSS_RAYS_LAUNCHES} loss_rays_kernel launches and {mk.PLAIN_LOSS_RAYS_LAUNCHES} "
+                  f"plain ray batches in {n_steps} steps")
         launches["record"] += counts[0]
         launches["replay"] += counts[1]
+        launches["loss_rays"] += mk.LOSS_RAYS_LAUNCHES
         finite = all(bool(torch.isfinite(x).all()) for x in inv.grid_leaves(grids))
         grads_finite = all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in inv.grid_leaves(grids))
         check(all(np.isfinite(losses)) and finite and grads_finite, f"{label}: loss, grids or gradients not finite")
@@ -785,8 +848,8 @@ def measuring_launch(mk, medium, params, dev, launch, bb_table=None):
 
 
 def train_phase(card, dev):
-    """Phase 9 on the CUDA device `dev`; returns the record and replay
-    kernels' entries of the kernels line."""
+    """Phase 9 on the CUDA device `dev`; returns the record, replay and
+    ray-batch kernels' entries of the kernels line."""
     import numpy as np
     import torch
 
@@ -794,12 +857,13 @@ def train_phase(card, dev):
     from volume_path_tracer_tpu_torch.diff import prb
     from volume_path_tracer_tpu_torch.grids.grid import dense_grid_from_array
     from volume_path_tracer_tpu_torch.grids.procedural import fire_plume, fog_sphere
+    from volume_path_tracer_tpu_torch.models.camera import Camera
     from volume_path_tracer_tpu_torch.models.medium import Medium
     from volume_path_tracer_tpu_torch.render import integrator as integ
     from volume_path_tracer_tpu_torch.render import megakernel as mk
     from volume_path_tracer_tpu_torch.render.renderer import Scene, pixel_coords
     from volume_path_tracer_tpu_torch.utils import rng as vrng
-    from volume_path_tracer_tpu_torch.utils.config import loads_configuration
+    from volume_path_tracer_tpu_torch.utils.config import CameraParameters, loads_configuration
     from volume_path_tracer_tpu_torch.utils.spectral import blackbody_xyz_table
 
     K = prb.DEFAULT_K_WALKS
@@ -933,8 +997,19 @@ def train_phase(card, dev):
     print(f"replay kernel, {n_cases} small cases: worst relative L2 {worst:.2e} (bound 1e-3: float atomics add in "
           f"another order every run, FMA contraction); {time.perf_counter() - t_cases:.1f} s with the plain versions")
 
-    # (c) the full density step: bench.py's density cell, first step
+    # (c) the full density step: bench.py's density cell, first step. Its
+    # ray batch first: loss_rays_kernel against the plain version on the
+    # step's inputs, and at the benchmark's train shape (256x256 x 4, waves
+    # wave0 * 4 + i past 2^32).
     med, fog_base, wdas, fog_cam, coords, tpids, rays = density_step(dev)
+    lr_err, lr_ms, lr_plain_ms, lr_bound = loss_rays_report(card, dev, fog_cam, coords, tpids, (3, 1), TRAIN_K,
+                                                            "density step")
+    cam256 = Camera.from_parameters(
+        CameraParameters((900.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 35.0, 1.0), (256, 256), device=dev)
+    loss_rays_report(card, dev, cam256, torch.from_numpy(pixel_coords(256, 256)).to(dev),
+                     torch.arange(256 * 256, dtype=torch.int32, device=dev), (0xDEADBEEF, 2**30 + 3), 4,
+                     "the benchmark's train shape")
+    del cam256
     o_w, d_w, pids_k, stream_k = rays
     n = pids_k.shape[0]
     ray_args = (med, wdas, None, *rays)
@@ -1080,6 +1155,11 @@ def train_phase(card, dev):
          "replaces": "volume_path_tracer_tpu/diff/prb.py:657", "launches": launches["replay"],
          "max_abs_err": replay_max_abs, "ms": replay_ms, "plain_ms": replay_plain_ms, "bound_ms": rep_bound,
          "bound_by": rep_by, "library_ms": None},
+        # loss_rays_kernel: in the JAX package XLA ops inside make_render_loss's loss_fn
+        {"name": "loss_rays", "route": "cuda", "source": source,
+         "replaces": "volume_path_tracer_tpu/diff/inverse.py:174", "launches": launches["loss_rays"],
+         "max_abs_err": lr_err, "ms": lr_ms, "plain_ms": lr_plain_ms, "bound_ms": lr_bound, "bound_by": "bytes",
+         "library_ms": None},
     ]
 
 
@@ -1230,7 +1310,8 @@ def mesh_phase(card, dev):
     the one-device render, the sharded train step against mesh=None, the
     multi-process example over NCCL (world size 1) and over gloo (two
     processes on the one card), and the inverse-rendering example. Returns
-    the launches of the wave, record and replay kernels on these paths."""
+    the launches of the wave, record, replay and ray-batch kernels on these
+    paths."""
     import numpy as np
     import torch
 
@@ -1246,7 +1327,8 @@ def mesh_phase(card, dev):
 
     t_phase = time.perf_counter()
     print(f"torch.cuda.device_count() {torch.cuda.device_count()}", flush=True)
-    launches = {"render_wave": 0, "render_wave_dense": 0, "render_wave_dense_own": 0, "record": 0, "replay": 0}
+    launches = {"render_wave": 0, "render_wave_dense": 0, "render_wave_dense_own": 0, "record": 0, "replay": 0,
+                "loss_rays": 0}
     flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
     grid = fog_sphere(radius=30.0, falloff=6.0)
     for pack in (True, False):
@@ -1346,9 +1428,13 @@ def mesh_phase(card, dev):
               and mk.PLAIN_RECORD_LAUNCHES + mk.PLAIN_REPLAY_LAUNCHES == 0,
               f"train {label}: {mk.RECORD_LAUNCHES} record / {mk.REPLAY_LAUNCHES} replay launches in "
               f"{MESH_TRAIN_STEPS} steps of {cells} cell(s)")
+        check(mk.LOSS_RAYS_LAUNCHES == MESH_TRAIN_STEPS * cells and mk.PLAIN_LOSS_RAYS_LAUNCHES == 0,
+              f"train {label}: {mk.LOSS_RAYS_LAUNCHES} loss_rays_kernel launches and {mk.PLAIN_LOSS_RAYS_LAUNCHES} "
+              f"plain ray batches in {MESH_TRAIN_STEPS} steps of {cells} cell(s)")
         if mesh is not None:
             launches["record"] += mk.RECORD_LAUNCHES
             launches["replay"] += mk.REPLAY_LAUNCHES
+            launches["loss_rays"] += mk.LOSS_RAYS_LAUNCHES
         results[label] = first + (TRAIN_SIZE * TRAIN_SIZE * TRAIN_K * MESH_TRAIN_STEPS / dt,)
     (l1, g1, r1), (l2, g2, r2) = results["one device"], results["2x1"]
     g_ok = bool(torch.allclose(g2, g1, rtol=1e-4, atol=1e-6))
@@ -1418,7 +1504,7 @@ BENCH_RTOL = 0.10
 BENCH_COUNTERS = ("WAVE_LAUNCHES", "DENSE_WAVE_LAUNCHES", "PADDED_WAVE_LAUNCHES", "LAUNCHES", "DENSE_LAUNCHES",
                   "PADDED_LAUNCHES", "RECORD_LAUNCHES", "REPLAY_LAUNCHES", "DENSE_RECORD_LAUNCHES",
                   "DENSE_REPLAY_LAUNCHES", "PLAIN_WAVE_LAUNCHES", "PLAIN_LAUNCHES", "PLAIN_RECORD_LAUNCHES",
-                  "PLAIN_REPLAY_LAUNCHES")
+                  "PLAIN_REPLAY_LAUNCHES", "LOSS_RAYS_LAUNCHES", "PLAIN_LOSS_RAYS_LAUNCHES")
 
 
 def bench_phase(card, dev, build_s, render_rays_s=None):
@@ -1478,7 +1564,8 @@ def bench_phase(card, dev, build_s, render_rays_s=None):
             "render_wave_dense_own": counts["DENSE_WAVE_LAUNCHES"] - counts["PADDED_WAVE_LAUNCHES"],
             "trace_lanes_dense": counts["PADDED_LAUNCHES"],
             "trace_lanes_dense_own": counts["DENSE_LAUNCHES"] - counts["PADDED_LAUNCHES"],
-            "record_lanes": counts["RECORD_LAUNCHES"], "replay_lanes": counts["REPLAY_LAUNCHES"]}
+            "record_lanes": counts["RECORD_LAUNCHES"], "replay_lanes": counts["REPLAY_LAUNCHES"],
+            "loss_rays": counts["LOSS_RAYS_LAUNCHES"]}
 
 
 def compare(repo_dir):
@@ -2232,7 +2319,7 @@ def main(only=None):
     phase("10 mesh")
     sharded = mesh_phase(card, dev)
     for k in train_kernels:
-        k["launches_sharded"] = sharded["record" if k["name"] == "record_lanes" else "replay"]
+        k["launches_sharded"] = sharded[{"record_lanes": "record", "replay_lanes": "replay"}.get(k["name"], k["name"])]
 
     # ------------------------------------------------------------------
     phase("11 bench")
@@ -2270,8 +2357,9 @@ def main(only=None):
            "ms": dense[form]["trace_ms"], "plain_ms": dense_plain_ms, "bound_ms": dense[form]["trace_bound"][0],
            "bound_by": dense[form]["trace_bound"][1], "library_ms": None}
           for form, suffix in (("padded", ""), ("own", "_own"))),
-        # The gradient path (phase 9): launches in bench.py's three train
-        # cells, times and bounds on the full density step.
+        # The gradient path and the step's ray batch (phase 9): launches in
+        # bench.py's three train cells, times and bounds on the full density
+        # step.
         *train_kernels,
     ]}
     # launches_bench: each kernel's launches in the bench's primary (phase 11)

@@ -125,6 +125,61 @@ def test_medium_with_params_matches_jax(pack):
         assert tm.density_rows is None and tm.temperature_rows is None
 
 
+# (k, wave0) of the ray batch's cases: waves wave0 * k + i that wrap past
+# 2^32 for every i (k = 4), for some (k = 3), and the largest wave (k = 1).
+LOSS_RAY_CASES = [(1, 2**32 - 1), (3, 1431655765), (4, 2**30 + 3)]
+LOSS_RAY_SEED = 0xDEADBEEF
+
+
+def _jloss_rays(jcam, raster, pids, seed_wave, k, use_jitter):
+    """The JAX package's ray batch of one loss evaluation, as its
+    make_render_loss's loss_fn writes it inline."""
+    from volume_path_tracer_tpu.utils import rng as jrng
+
+    n = pids.shape[0]
+    raster_k = jnp.tile(raster, (k, 1))
+    pids_k = jnp.tile(pids, (k,))
+    waves = seed_wave[1] * jnp.uint32(k) + jnp.arange(k, dtype=jnp.uint32)
+    stream_k = jnp.repeat(jrng.mix_stream(seed_wave[0], waves), n)
+    u_jit = jrng.counter_uniforms(pids_k, stream_k, jnp.int32(2**31 - 1), 2)
+    o_w, d_w = jcam.generate_rays(raster_k, u_jit * (0.5 if use_jitter else 0.0))
+    return o_w, d_w, pids_k, stream_k
+
+
+@pytest.mark.parametrize("pid_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("use_jitter", [True, False], ids=["jitter", "no_jitter"])
+@pytest.mark.parametrize("k,wave0", LOSS_RAY_CASES, ids=["k1", "k3_wraps_partly", "k4_wraps"])
+def test_loss_rays_plain_matches_jax(k, wave0, use_jitter, pid_dtype):
+    """loss_rays on CPU tensors runs its plain version (the plain counter
+    moves, the kernel's does not) and gives the JAX package's ray batch:
+    pixel ids (in the input's type) and stream words bitwise, the origins
+    bitwise, the directions to a product's rounding."""
+    (_, _, jcam, _), (_, _, tcam, _) = _scene("fog")
+    raster, pids, _ = _batch()
+    jo, jd, jp, js = _jloss_rays(jcam, jnp.asarray(raster), jnp.asarray(pids),
+                                 jnp.asarray([LOSS_RAY_SEED, wave0], jnp.uint32), k, use_jitter)
+    plain, kernel = tmk.PLAIN_LOSS_RAYS_LAUNCHES, tmk.LOSS_RAYS_LAUNCHES
+    to, td, tp, ts = tinv.loss_rays(tcam, torch.from_numpy(raster), torch.from_numpy(pids).to(pid_dtype),
+                                    (LOSS_RAY_SEED, wave0), k, use_jitter)
+    assert (tmk.PLAIN_LOSS_RAYS_LAUNCHES, tmk.LOSS_RAYS_LAUNCHES) == (plain + 1, kernel)
+    assert tp.dtype == pid_dtype and td.shape == (k * W * H, 3)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(ts.numpy() & 0xFFFFFFFF, np.asarray(js).astype(np.int64))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
+
+
+def test_loss_rays_jitter_out_only_on_the_card():
+    """jitter_out is filled by the kernel alone: on CPU tensors it raises
+    rather than being left as it was."""
+    (_, _, _, _), (_, _, tcam, _) = _scene("fog")
+    raster, pids, _ = _batch()
+    jit = torch.zeros((W * H, 2), dtype=torch.float32)
+    with pytest.raises(ValueError, match="jitter_out"):
+        tmk.loss_rays(tcam, torch.from_numpy(raster), torch.from_numpy(pids), (LOSS_RAY_SEED, 1), 1, True,
+                      jitter_out=jit)
+
+
 @pytest.mark.parametrize("name,dual", [("fog", False), ("fire", True)], ids=["plain", "dual_buffer"])
 def test_render_loss_matches_jax(name, dual):
     (jmed, jprm, jcam, jbb), (tmed, tprm, tcam, tbb) = _scene(name)

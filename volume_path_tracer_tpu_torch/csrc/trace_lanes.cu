@@ -68,6 +68,8 @@
 //                       group with the longest lane (by the record's
 //                       counters) first, so long lanes do not start last.
 //
+// Beside them, loss_rays_kernel makes a train step's ray batch (below).
+//
 // Path replay is right only if the replay takes the forward's branches on
 // the forward's draws, lane by lane. Both steps therefore call one inlined
 // traverse() (draws, free flight, the row read, the next segment) and the
@@ -1302,6 +1304,62 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) replay_lanes_kernel(const
   warp_loop<kReplayKind, kTap, kDense>(a);
 }
 
+// The ray batch of one loss evaluation (diff/inverse.py loss_rays; in the
+// JAX package XLA ops inside make_render_loss's loss_fn, no Pallas kernel).
+// Lane q < k * n is sample i = q / n of pixel j = q % n: its stream word
+// mix_stream(seed, wave0 * k + i) in uint32 arithmetic (the host's (wave0 *
+// k + i) mod 2^32 gives the same word), the render wave's jitter draw and
+// camera ray (camera_lane), its pixel id and its word written out. It
+// replaces some 127 torch launches over 64-bit words and two copies from
+// host memory, each of which waited for the card, so the train step's host
+// never ran ahead of it. One thread a lane; bound by bytes (12-20 B read a
+// pixel, 20-24 B written a lane): 4.5 us a 262,144-lane launch on the H100,
+// 40% of that bound (PERF.md, Findings).
+constexpr int LOSS_RAYS_THREADS = 256;
+
+template <typename R, typename P>
+__global__ void __launch_bounds__(LOSS_RAYS_THREADS) loss_rays_kernel(
+    const R* __restrict__ raster, const P* __restrict__ pids, const float* __restrict__ m,
+    const float* __restrict__ t, uint32_t seed, uint32_t wave0, int k, int n, float jitter,
+    float* __restrict__ d_w, P* __restrict__ pids_k, int* __restrict__ stream_k, float* __restrict__ jit) {
+  const long long q = (long long)blockIdx.x * LOSS_RAYS_THREADS + threadIdx.x;
+  if (q >= (long long)k * n) return;
+  const int i = (int)(q / n), j = (int)(q - (long long)i * n);
+  const uint32_t strm = seed * 0x9E3779B9u + (wave0 * (uint32_t)k + (uint32_t)i) * 0x85EBCA6Bu;
+  const P pid = pids[j];
+  uint32_t r0 = (uint32_t)pid, r1 = strm, r2 = JITTER_CTR, r3 = 0u;
+  pcg4d(r0, r1, r2, r3);
+  const float u0 = u32_to_uniform(r0), u1 = u32_to_uniform(r1);
+  const float ptx = ((float)raster[2 * (size_t)j] + 0.5f) + u0 * jitter;
+  const float pty = ((float)raster[2 * (size_t)j + 1] + 0.5f) + u1 * jitter;
+  // m: [3, 3] row-major, acting on (x, y, 0).
+  const float dx = ptx * m[0] + pty * m[1] + t[0];
+  const float dy = ptx * m[3] + pty * m[4] + t[1];
+  const float dz = ptx * m[6] + pty * m[7] + t[2];
+  const float nrm = sqrtf(dx * dx + dy * dy + dz * dz);
+  d_w[3 * q] = dx / nrm;
+  d_w[3 * q + 1] = dy / nrm;
+  d_w[3 * q + 2] = dz / nrm;
+  pids_k[q] = pid;
+  stream_k[q] = (int)strm;
+  if (jit != nullptr) {
+    jit[2 * q] = u0;
+    jit[2 * q + 1] = u1;
+  }
+}
+
+template <typename R, typename P>
+int launch_loss_rays(void* stream, const void* raster, const void* pids, const float* m, const float* t,
+                     uint32_t seed, uint32_t wave0, int k, int n, float jitter, float* d_w, void* pids_k,
+                     int* stream_k, float* jit) {
+  const long long lanes = (long long)k * n;
+  const int blocks = (int)((lanes + LOSS_RAYS_THREADS - 1) / LOSS_RAYS_THREADS);
+  loss_rays_kernel<R, P><<<blocks, LOSS_RAYS_THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const R*>(raster), static_cast<const P*>(pids), m, t, seed, wave0, k, n, jitter, d_w,
+      static_cast<P*>(pids_k), stream_k, jit);
+  return (int)cudaGetLastError();
+}
+
 using Kernel = void (*)(const Args);
 
 template <int kDense>
@@ -1532,6 +1590,35 @@ int vpt_replay_lanes(int device, void* stream, const float* o_world, int o_strid
   set_tables(a, rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj, tdata, n_tdata,
              fp, ip, scratch, tap, stat);
   return launch(kReplayKind, device, stream, a);
+}
+
+// The ray batch of one loss evaluation (diff/inverse.py loss_rays), one
+// launch: for lane q < k * n, sample i = q / n of pixel j = q % n, d_w
+// [k * n, 3] gets the unit world direction, pids_k [k * n] pids[j],
+// stream_k [k * n] int32 (uint32 bits) mix_stream(seed, wave0 * k + i), and
+// jit [k * n, 2] (or null) the two jitter uniforms. raster [n, 2] and pids
+// [n] are int32, or int64 where raster_i64 / pids_i64, and pids_k takes
+// pids' type; m [3, 3] and t [3] are the camera's raster_to_world_dir and
+// raster_to_world_trans, float32 on the device; jitter 1 moves each ray by
+// half a pixel times its uniforms, 0 not at all.
+int vpt_loss_rays(int device, void* stream, const void* raster, int raster_i64, const void* pids, int pids_i64,
+                  const float* m, const float* t, unsigned int seed, unsigned int wave0, int k, int n,
+                  int jitter, float* d_w, void* pids_k, int* stream_k, float* jit) {
+  if (k < 0 || n < 0 || (long long)k * n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)k * n == 0) return 0;
+  const float scale = jitter ? 0.5f : 0.f;
+  if (raster_i64) {
+    return pids_i64 ? launch_loss_rays<long long, long long>(stream, raster, pids, m, t, seed, wave0, k, n, scale,
+                                                             d_w, pids_k, stream_k, jit)
+                    : launch_loss_rays<long long, int>(stream, raster, pids, m, t, seed, wave0, k, n, scale, d_w,
+                                                       pids_k, stream_k, jit);
+  }
+  return pids_i64 ? launch_loss_rays<int, long long>(stream, raster, pids, m, t, seed, wave0, k, n, scale, d_w,
+                                                     pids_k, stream_k, jit)
+                  : launch_loss_rays<int, int>(stream, raster, pids, m, t, seed, wave0, k, n, scale, d_w, pids_k,
+                                               stream_k, jit);
 }
 
 // Resident blocks of the production kernels on `device` (see

@@ -3,13 +3,14 @@
 Port of volume_path_tracer_tpu/diff/inverse.py on one device. The loss
 renders a pixel batch `samples_per_step` times through the path-replay
 renderer (diff/prb.py trace_rays_prb: on the card the record kernel forward
-and the replay kernel backward) and compares the per-pixel mean with the
-target; the train step divides the gradient by the loss's count and hands
-it to torch.optim.Adam, the update optax.adam makes (its rounding order
-differs). Checkpoints keep the JAX package's file layout, so a checkpoint
-crosses packages in both directions. With a mesh (parallel/shard.py) each
-cell takes a rays shard and an 'spp' wave, and the gradients and the loss
-are summed over every cell before the update.
+and the replay kernel backward), its ray batch made by render/megakernel.py
+loss_rays (on the card one launch that waits for nothing), and compares
+the per-pixel mean with the target; the train step divides the gradient by
+the loss's count and hands it to torch.optim.Adam, the update optax.adam
+makes (its rounding order differs). Checkpoints keep the JAX package's file
+layout, so a checkpoint crosses packages in both directions. With a mesh
+(parallel/shard.py) each cell takes a rays shard and an 'spp' wave, and the
+gradients and the loss are summed over every cell before the update.
 """
 from __future__ import annotations
 
@@ -28,8 +29,7 @@ from ..models.camera import Camera
 from ..models.medium import Medium, pack_fused_rows, padded_copies
 from ..parallel.shard import Mesh, to_device, tree_sum
 from ..render.integrator import IntegratorParams, trace_rays_diff
-from ..render.megakernel import JITTER_COUNTER
-from ..utils import rng as vrng
+from ..render.megakernel import loss_rays
 from ..utils.spans import span
 from .prb import trace_rays_prb
 
@@ -138,20 +138,6 @@ def medium_with_params(base: Medium, grids: OptimizableGrids, bloat: float = 0.1
         temperature_rows=(pack_corner_rows(temperature.data.detach())
                           if (pack and temperature is not None) else None),
     )
-
-
-def loss_rays(camera: Camera, raster, pids, seed_wave, k: int, use_jitter: bool):
-    """The ray batch of one loss evaluation: k waves of the pixel batch,
-    wave seed_wave[1] * k + i of seed seed_wave[0] for i < k, as one flat
-    batch (o_world, d_world [k * N, 3], pixel ids, per-lane streams [k * N])."""
-    n = pids.shape[0]
-    seed, wave0 = int(seed_wave[0]), int(seed_wave[1])
-    streams = [vrng.mix_stream(seed, (wave0 * k + i) & 0xFFFFFFFF) for i in range(k)]
-    stream_k = torch.tensor(streams, dtype=torch.int64, device=pids.device).repeat_interleave(n)
-    pids_k = pids.repeat(k)
-    u_jit = vrng.counter_uniforms(pids_k, stream_k, JITTER_COUNTER, 2)
-    o_w, d_w = camera.generate_rays(raster.repeat(k, 1), u_jit * (0.5 if use_jitter else 0.0))
-    return o_w, d_w, pids_k, stream_k
 
 
 def make_render_loss(

@@ -42,11 +42,18 @@ The gradient path (diff/prb.py trace_rays_prb) has two more:
                      are folded (prb.fold_corner_rows); on CPU tensors its
                      plain version, diff/prb.py replay_grads.
 
-WAVE_LAUNCHES, LAUNCHES, RECORD_LAUNCHES, REPLAY_LAUNCHES and the PLAIN_*
-counters of the plain versions count the launches of each, the DENSE_*
-counters those of the dense instantiations among them, and the PADDED_*
-counters those of the dense launches that read the padded copies, so a run
-can show which one its main path went through.
+and the train step (diff/inverse.py make_train_step) one:
+
+  loss_rays          the ray batch of one loss evaluation: on CUDA tensors
+                     one launch of loss_rays_kernel makes each lane's stream
+                     word, jitter and camera ray, with nothing copied from
+                     the host; on CPU tensors loss_rays_plain, in torch.
+
+WAVE_LAUNCHES, LAUNCHES, RECORD_LAUNCHES, REPLAY_LAUNCHES, LOSS_RAYS_LAUNCHES
+and the PLAIN_* counters of the plain versions count the launches of each,
+the DENSE_* counters those of the dense instantiations among them, and the
+PADDED_* counters those of the dense launches that read the padded copies,
+so a run can show which one its main path went through.
 
 The kernels are compiled with nvcc at first use, from the checkout's own
 source, into volume_path_tracer_tpu_torch/_build/ (one library per source
@@ -126,6 +133,8 @@ RECORD_LAUNCHES = 0  # trace_lanes_kernel record launches (record_lanes on CUDA 
 REPLAY_LAUNCHES = 0  # replay_lanes_kernel launches (replay_lanes on CUDA tensors)
 PLAIN_RECORD_LAUNCHES = 0  # plain-version runs (record_lanes_plain)
 PLAIN_REPLAY_LAUNCHES = 0  # plain-version runs (replay_lanes_plain)
+LOSS_RAYS_LAUNCHES = 0  # loss_rays_kernel launches (loss_rays on CUDA tensors)
+PLAIN_LOSS_RAYS_LAUNCHES = 0  # plain-version runs (loss_rays_plain)
 DENSE_RECORD_LAUNCHES = 0
 DENSE_REPLAY_LAUNCHES = 0
 # Those of the DENSE_* launches that read the grids' padded copies.
@@ -170,6 +179,9 @@ C_SIGNATURES = {
     # max_steps, max_iters, tf, k_walks, g, Lf, gd, gt, gacc, nsteps
     "vpt_replay_lanes": (_I, (_I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I,
                               _P, _P, _P, _P, _P, _P, *_TABLES)),
+    # device, stream, raster, raster_i64, pids, pids_i64, m, t, seed, wave0,
+    # k, n, jitter, d_w, pids_k, stream_k, jit
+    "vpt_loss_rays": (_I, (_I, _P, _P, _I, _P, _I, _P, _P, _U, _U, _I, _I, _I, _P, _P, _P, _P)),
     # device, dense, wave_blocks, trace_blocks, threads, sms, record_blocks,
     # replay_blocks
     "vpt_occupancy": (_I, (_I, _I, _P, _P, _P, _P, _P, _P)),
@@ -796,7 +808,8 @@ def render_wave(
 
 def _stream_bits(stream, n: int, dev) -> torch.Tensor:
     """The per-lane stream words (integrator.lane_streams) as int32 bits
-    [n] on `dev`, in one launch: an int64 tensor's low words (CUDA memory is
+    [n] on `dev`: an int32 tensor as it is (loss_rays' words on the card),
+    else in one launch: an int64 tensor's low words (CUDA memory is
     little-endian), or one word filled."""
     if isinstance(stream, int):
         word = stream & 0xFFFFFFFF
@@ -1012,6 +1025,80 @@ def replay_lanes(
     if with_check:
         return d_density, d_temp, gacc, dot3(g_vec, L_fwd)
     return d_density, d_temp
+
+
+# ------------------------------------------------------------ train step ----
+
+def loss_rays_plain(camera: Camera, raster: torch.Tensor, pids: torch.Tensor, seed_wave, k: int,
+                    use_jitter: bool):
+    """loss_rays's plain version, in torch: the k stream words made on the
+    host and copied over, the jitter draws (utils.rng.counter_uniforms),
+    Camera.generate_rays. stream_k is int64 (uint32 values)."""
+    global PLAIN_LOSS_RAYS_LAUNCHES
+    PLAIN_LOSS_RAYS_LAUNCHES += 1
+    n = pids.shape[0]
+    seed, wave0 = int(seed_wave[0]), int(seed_wave[1])
+    streams = [vrng.mix_stream(seed, (wave0 * k + i) & 0xFFFFFFFF) for i in range(k)]
+    stream_k = torch.tensor(streams, dtype=torch.int64, device=pids.device).repeat_interleave(n)
+    pids_k = pids.repeat(k)
+    u_jit = vrng.counter_uniforms(pids_k, stream_k, JITTER_COUNTER, 2)
+    o_w, d_w = camera.generate_rays(raster.repeat(k, 1), u_jit * (0.5 if use_jitter else 0.0))
+    return o_w, d_w, pids_k, stream_k
+
+
+def loss_rays(camera: Camera, raster: torch.Tensor, pids: torch.Tensor, seed_wave, k: int, use_jitter: bool,
+              jitter_out: Optional[torch.Tensor] = None):
+    """The ray batch of one loss evaluation: k waves of the pixel batch,
+    wave seed_wave[1] * k + i of seed seed_wave[0] for i < k, as one flat
+    batch (o_world, d_world [k * N, 3], pixel ids [k * N] of pids' type,
+    per-lane stream words [k * N]). raster [N, 2] and pids [N] are integer;
+    seed_wave holds two Python ints. o_world is the camera's position
+    expanded over the lanes (stride 0).
+
+    On CUDA tensors (int32 or int64 raster and pids) this launches
+    loss_rays_kernel once, or raises: nothing is copied from the host and
+    nothing waits for the card. The stream words are then int32 bits, which
+    every consumer reads as its uint32 word (lane_streams, _stream_bits),
+    and the directions equal the plain version's to rounding (the sum's
+    order). jitter_out, CUDA only: a float32 [k * N, 2] tensor that gets each
+    lane's two jitter uniforms (for checks). On CPU tensors this runs
+    loss_rays_plain, and a jitter_out raises.
+    """
+    if pids.device.type == "cpu":
+        if jitter_out is not None:
+            raise ValueError("loss_rays: jitter_out is filled on CUDA tensors only")
+        return loss_rays_plain(camera, raster, pids, seed_wave, k, use_jitter)
+    if pids.device.type != "cuda":
+        raise ValueError(f"loss_rays: unsupported device {pids.device}")
+    dev = pids.device
+    n = pids.shape[0]
+    lanes = k * n
+    if k < 0 or lanes >= 2**31:
+        raise ValueError(f"loss_rays: {k} x {n} lanes do not fit 32-bit lane indices")
+    ints = (torch.int32, torch.int64)
+    raster, pids = raster.contiguous(), pids.contiguous()
+    if raster.dtype not in ints or pids.dtype not in ints:
+        raise ValueError(f"loss_rays: raster and pids must be int32 or int64, got {raster.dtype}, {pids.dtype}")
+    _check(raster, "raster", raster.dtype, (n, 2), dev)
+    _check(pids, "pids", pids.dtype, (n,), dev)
+    m, t = camera.raster_to_world_dir, camera.raster_to_world_trans
+    _check(m, "raster_to_world_dir", torch.float32, (3, 3), dev)
+    _check(t, "raster_to_world_trans", torch.float32, (3,), dev)
+    if jitter_out is not None:
+        _check(jitter_out, "jitter_out", torch.float32, (lanes, 2), dev)
+    d_w = torch.empty((lanes, 3), dtype=torch.float32, device=dev)
+    pids_k = torch.empty((lanes,), dtype=pids.dtype, device=dev)
+    stream_k = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    err = _library().vpt_loss_rays(
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream, raster.data_ptr(),
+        int(raster.dtype == torch.int64), pids.data_ptr(), int(pids.dtype == torch.int64), m.data_ptr(),
+        t.data_ptr(), int(seed_wave[0]) & 0xFFFFFFFF, int(seed_wave[1]) & 0xFFFFFFFF, k, n, int(bool(use_jitter)),
+        d_w.data_ptr(), pids_k.data_ptr(), stream_k.data_ptr(), _ptr(jitter_out),
+    )
+    _raise_on(err, "loss_rays launch")
+    global LOSS_RAYS_LAUNCHES
+    LOSS_RAYS_LAUNCHES += 1
+    return camera.position.expand(lanes, 3), d_w, pids_k, stream_k
 
 
 # --------------------------------------------------------- measurement ----
