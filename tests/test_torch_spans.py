@@ -5,7 +5,8 @@ torch.profiler the wave, the sharded wave and the train step record their
 spans nested by time on the profiler's clock: render.wave holds
 render.film; shard.wave one shard.cell a cell and shard.gather; train.step
 the optimizer's zero_grad, train.rebuild, train.rays, prb.record,
-train.backward (holding the replay, prb.replay) and the optimizer's step.
+train.backward (holding the replay, prb.replay, which holds its fold,
+prb.fold) and the optimizer's step.
 Every span("...") in the package is named in SPANS, and every name in SPANS
 is used.
 """
@@ -97,12 +98,13 @@ def test_train_step_phases_in_order():
     got = _recorded(lambda: step(grids, opt, raster, pids, target, (3, 1)))
     names = [s[0] for s in got]
     assert names == ["train.step", "train.optimizer", "train.rebuild", "train.rays", "prb.record",
-                     "train.backward", "prb.replay", "train.optimizer"]
-    top, phases = got[0], [s for s in got[1:] if s[0] != "prb.replay"]
+                     "train.backward", "prb.replay", "prb.fold", "train.optimizer"]
+    top, phases = got[0], [s for s in got[1:] if s[0] not in ("prb.replay", "prb.fold")]
     assert all(_inside(s, top) for s in got[1:])
     # the phases are disjoint and in order on the calling thread; the replay runs inside the backward
     assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:]))
     assert _inside(got[names.index("prb.replay")], got[names.index("train.backward")])
+    assert _inside(got[names.index("prb.fold")], got[names.index("prb.replay")])
 
 
 def _used_names():

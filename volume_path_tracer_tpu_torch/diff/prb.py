@@ -443,8 +443,9 @@ def replay_grads(
         keep = alive_first_perm(st.mode == RDONE)[:next_w]
         st, pids, streams, gL_tot, g, idx_map = compact_lanes(keep, (st, pids, streams, gL_tot, g, idx_map))
 
-    d_density = fold_corner_rows(gd, (X, Y, Z))
-    d_temp = fold_corner_rows(gt, medium.temperature.shape) if gt is not None else None
+    with span("prb.fold"):
+        d_density = fold_corner_rows(gd, (X, Y, Z))
+        d_temp = fold_corner_rows(gt, medium.temperature.shape) if gt is not None else None
     if with_check:
         return d_density, d_temp, gL_fin, gL_tot_full
     return d_density, d_temp

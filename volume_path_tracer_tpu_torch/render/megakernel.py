@@ -1020,8 +1020,9 @@ def replay_lanes(
     PADDED_REPLAY_LAUNCHES += _reads_padded(medium, consts)
     if row_tables is not None:
         row_tables.extend((gd, gt))
-    d_density = fold_corner_rows(gd, (X, Y, Z))
-    d_temp = fold_corner_rows(gt, medium.temperature.shape) if gt is not None else None
+    with span("prb.fold"):
+        d_density = fold_corner_rows(gd, (X, Y, Z))
+        d_temp = fold_corner_rows(gt, medium.temperature.shape) if gt is not None else None
     if with_check:
         return d_density, d_temp, gacc, dot3(g_vec, L_fwd)
     return d_density, d_temp
