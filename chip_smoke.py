@@ -1030,9 +1030,8 @@ def train_phase(card, dev):
     order = mk.longest_first(ctr_k)
     g_full = torch.tensor(np.random.default_rng(2).uniform(0.2, 1.0, (n, 3)), dtype=torch.float32, device=dev)
     steps = torch.zeros(n, dtype=torch.int32, device=dev)
-    tables = []
-    _, _, acc, tot = mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k, with_check=True, lane_steps=steps,
-                                     row_tables=tables, order=order)
+    grad_k, _, acc, tot = mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k, with_check=True, lane_steps=steps,
+                                          order=order)
     steps_i = torch.zeros(n, dtype=torch.int32, device=dev)
     _, _, acc_i, _ = mk.replay_lanes(*ray_args, L_k, g_full, tf=tf_k, with_check=True, lane_steps=steps_i)
     torch.cuda.synchronize()
@@ -1103,15 +1102,16 @@ def train_phase(card, dev):
     # 12 B), ids and streams and what its measuring launch marked of the
     # medium, and writes radiance, counter and residuals; the replay reads
     # the rays, ids, streams, the order, g, L and the residuals, what it
-    # marked, and writes the distinct corner rows it touched.
+    # marked, and writes the distinct voxels of the gradient grid it touched
+    # (4 B each: the kernel adds into the grid itself, no corner-row table).
     o_bytes = 12 if o_w.stride(0) == 0 else n * 12
     rec_rows, rec_words = tap_bytes(med, wdas, None, rec_tap)
     rec_bytes = o_bytes + n * (12 + 4 + 4 + 12 + 4 + 4 * K) + rec_rows
     rec_ops = fwd_steps * OPS_PER_LANE_STEP + n * OPS_PER_RAY_SETUP
     rec_b_ms, rec_o_ms = rec_bytes / HBM_BYTES_PER_S * 1e3, rec_ops / FP32_OPS_PER_S * 1e3
     rep_rows, rep_words = tap_bytes(med, wdas, None, rep_st["longest group first"][1])
-    rows_written = int((tables[0] != 0).any(1).sum())
-    rep_bytes = o_bytes + n * (12 + 4 + 4 + 4 + 12 + 12 + 4 * K) + rep_rows + rows_written * 32
+    voxels_written = int((grad_k != 0).sum())
+    rep_bytes = o_bytes + n * (12 + 4 + 4 + 4 + 12 + 12 + 4 * K) + rep_rows + voxels_written * 4
     rep_ops = rep_steps * OPS_PER_REPLAY_STEP + n * OPS_PER_RAY_SETUP
     rep_b_ms, rep_o_ms = rep_bytes / HBM_BYTES_PER_S * 1e3, rep_ops / FP32_OPS_PER_S * 1e3
     rec_bound, rep_bound = max(rec_b_ms, rec_o_ms), max(rep_b_ms, rep_o_ms)
@@ -1131,7 +1131,8 @@ def train_phase(card, dev):
               f"({rep_steps / max(fwd_steps, 1):.3f} of the forward's); {stat_words(st)} on {card}")
     print(f"replay kernel, density step: plain version {replay_plain_ms:.1f} ms; resident blocks "
           f"{occ.replay / occ.sms:.2f} / {docc.replay / docc.sms:.2f} per SM (packed / dense); "
-          f"{regs_of('replay_lanes_kernel<false, {}>')}; read {rep_words}; {rows_written} corner rows written; "
+          f"{regs_of('replay_lanes_kernel<false, {}>')}; read {rep_words}; {voxels_written} gradient voxels written "
+          f"(the grid's distinct voxels, 4 B each); "
           f"bound {rep_bound:.5f} ms ({rep_by}: {rep_bytes} B, {rep_b_ms:.5f} ms; {rep_ops} fp32 ops, "
           f"{rep_o_ms:.5f} ms) = {rep_bound / replay_ms:.4f} of the kernel's time (longest group first) on {card}")
     print("step 0: " + json.dumps({
@@ -1141,7 +1142,7 @@ def train_phase(card, dev):
                                "lane_steps": rep_steps, "simt": rep_st[label][0]["simt_efficiency"],
                                "half_idle_share": rep_st[label][0]["half_idle_share"],
                                "blocks_per_sm": occ.replay / occ.sms} for label in rep_st}}), flush=True)
-    del L_p, tf_p, dp, tables, acc_i, steps_i, rec_tap, rep_st
+    del L_p, tf_p, dp, grad_k, acc_i, steps_i, rec_tap, rep_st
 
     # (d) bench.py's three train cells through make_train_step
     launches, _ = train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids)
@@ -2372,13 +2373,13 @@ def main(only=None):
 
 
 # A measurement-only variant of the replay's scatter (its gradients are
-# wrong by design; it never runs on the main path): scatter_row's two float4
-# atomics into one row per warp (no scattered addresses). --variants builds
-# it from the source's text.
-SCATTER_LINE = "  float4* p = reinterpret_cast<float4*>(table + (size_t)row * 8);"
+# wrong by design; it never runs on the main path): scatter_grid's atomics
+# into 8 floats of each warp's own (no scattered addresses; the grid must
+# hold 8,192 voxels). --variants builds it from the source's text.
+SCATTER_LINE = "    float* q = grid + (((ptrdiff_t)cx * Y + cy) * Z + iz);"
 SCATTER_VARIANTS = {
-    "scatter=one_row_per_warp": [(SCATTER_LINE, "  float4* p = reinterpret_cast<float4*>(table + (size_t)"
-                                                "((((size_t)blockIdx.x * THREADS + threadIdx.x) >> 5) & 1023) * 8);")],
+    "scatter=one_place_per_warp": [(SCATTER_LINE, "    float* q = grid + ((((size_t)blockIdx.x * THREADS + "
+                                                  "threadIdx.x) >> 5) & 1023) * 8 + 2 * p;")],
 }
 # Resident blocks a gradient kernel is compiled for (NAME=N: its
 # __launch_bounds__ patched from MIN_BLOCKS to N; the record's only in its

@@ -62,11 +62,12 @@
 //                       _make_replay_step (there is no Pallas kernel for it):
 //                       one thread replays one lane's path from its world
 //                       ray and its draw counters and adds each event's
-//                       derivative into corner-row tables with two 16-byte
-//                       float atomics. Lanes are taken in the order the
-//                       wrapper gives: groups of neighbouring lanes, the
-//                       group with the longest lane (by the record's
-//                       counters) first, so long lanes do not start last.
+//                       derivative straight into the dense gradient grids
+//                       with float atomics (scatter_grid). Lanes
+//                       are taken in the order the wrapper gives: groups of
+//                       neighbouring lanes, the group with the longest lane
+//                       (by the record's counters) first, so long lanes do
+//                       not start last.
 //
 // Beside them, loss_rays_kernel makes a train step's ray batch (below).
 //
@@ -76,10 +77,14 @@
 // same helpers for the event, the HG redirect and ratio tracking; the
 // record kernel runs lane_step itself, so its radiance is trace_lanes's bit
 // for bit. The replay is bound as the forward is (the chain's latency, the
-// longest lane), not by its atomics: a collision adds one 32-byte row, and
-// sending every add of a warp to one row instead of the scattered rows saves
-// under 2% of its time (PERF.md, Findings). Atomics add in another order on
-// every run, so its gradients equal the plain replay's to rounding only.
+// longest lane), not by its atomics: a collision adds its 8 weighted corners
+// straight into the [X, Y, Z] gradient grids (scatter_grid), more atomic
+// instructions than a corner row's two 16-byte adds but no table: the JAX
+// package's corner-row tables [(X+1)(Y+1)(Z+1), 8] suit the TPU's scatter
+// engine, and on the card they are eight times the grid, to zero and fold
+// every step, which cost more device time than the replay itself (PERF.md,
+// Findings). Atomics add in another order on every run, so its gradients
+// equal the plain replay's to rounding only.
 //
 // What bounds it on this card, as measured (PERF.md, Findings): not bytes
 // and not the gather's bandwidth. A wave moves a few MB against 3.35 TB/s. A step is about 1,300 SASS instructions, most of them
@@ -228,9 +233,9 @@ struct Args {
   // longest_first). The record kernel
   // writes tf [n, k_walks] walk residuals (every slot), L_out [n, 3] and
   // ctr_out [n], each lane's last counter. The replay kernel: tf read, the
-  // cotangent g [n, 3] and the forward radiance Lf [n, 3], the corner-row
-  // gradient tables gd [(X+1)(Y+1)(Z+1), 8] and gt (temperature, or null),
-  // and, or null, gacc [n] (<g, L> replayed) and nsteps [n] (steps taken).
+  // cotangent g [n, 3] and the forward radiance Lf [n, 3], the gradient
+  // grids gd [X, Y, Z] and gt [TX, TY, TZ] (temperature, or null), and, or
+  // null, gacc [n] (<g, L> replayed) and nsteps [n] (steps taken).
   const float* o_world;
   const float* d_world;
   int o_stride;
@@ -802,19 +807,37 @@ __device__ __forceinline__ void record_walks(Lane& L, int mode0, int q, const Ar
   if (mode0 == CAM && L.mode == SHADOW) L.wc = L.wc + 1;
 }
 
-// Add w[c] * wgt to the 8 corner columns of `row` of a corner-row table:
-// two 16-byte float atomics (sm_90).
-__device__ __forceinline__ void scatter_row(float* table, int row, const float* w, float wgt) {
-  float4* p = reinterpret_cast<float4*>(table + (size_t)row * 8);
-  atomicAdd(p, make_float4(w[0] * wgt, w[1] * wgt, w[2] * wgt, w[3] * wgt));
-  atomicAdd(p + 1, make_float4(w[4] * wgt, w[5] * wgt, w[6] * wgt, w[7] * wgt));
+// Add w[c] * wgt to corner c of base voxel (ix, iy, iz) of a dense [X, Y, Z]
+// grid (corner order as tri_weights); a corner outside the grid is dropped,
+// as the plain version's fold never reads one. Corners 2p and 2p + 1 are
+// z-neighbours: where both are inside and the first is 8-byte aligned they
+// take one float2 atomic, else one float atomic each; no result is used (a
+// RED). The pairs measured 0.7-1.7% faster end to end than 8 float atomics
+// (PERF.md, Findings). The caller has tested the base voxel (every axis in
+// [-1, N-1]), so no index overflows.
+__device__ __forceinline__ void scatter_grid(float* grid, int ix, int iy, int iz, int X, int Y, int Z,
+                                             const float* w, float wgt) {
+  const bool z0 = iz >= 0, z1 = iz + 1 < Z;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int cx = ix + (p >> 1), cy = iy + (p & 1);
+    if (!(cx >= 0 && cx < X && cy >= 0 && cy < Y)) continue;
+    float* q = grid + (((ptrdiff_t)cx * Y + cy) * Z + iz);
+    const float a0 = w[2 * p] * wgt, a1 = w[2 * p + 1] * wgt;
+    if (z0 && z1 && (reinterpret_cast<uintptr_t>(q) & 7) == 0) {
+      atomicAdd(reinterpret_cast<float2*>(q), make_float2(a0, a1));
+    } else {
+      if (z0) atomicAdd(q, a0);
+      if (z1) atomicAdd(q + 1, a1);
+    }
+  }
 }
 
 // One replay step of one lane that is not RDONE (diff/prb.py
 // _make_replay_step): the forward's tracking event by traverse(), then the
 // camera collision's emission and score-function weights, the PRE / GRAD
 // shadow walks, the recorded residual at a shadow start, resume / retire,
-// and the gradient scatter into the corner-row tables a.gd and a.gt. kTap:
+// and the gradient scatter into the gradient grids a.gd and a.gt. kTap:
 // as in traverse.
 template <bool kTap, int kDense>
 __device__ __forceinline__ void replay_step(Lane& L, int q, const Args& a) {
@@ -991,14 +1014,14 @@ __device__ __forceinline__ void replay_step(Lane& L, int q, const Args& a) {
   // Emission + score weights on camera collisions, shadow_w on GRAD
   // collisions: disjoint lanes, added in the plain version's order.
   const float dweight = (demis + score_w) + shadow_w;
-  if (dweight != 0.f && tr.valid) scatter_row(a.gd, corner_row(tr.ix, tr.iy, tr.iz, X, Y, Z), tr.w, dweight);
+  if (dweight != 0.f && tr.valid) scatter_grid(a.gd, tr.ix, tr.iy, tr.iz, X, Y, Z, tr.w, dweight);
   if (tw != 0.f) {
     const int TX = ip[I_TX], TY = ip[I_TY], TZ = ip[I_TZ];
     const int jx = (int)floorf(tlx), jy = (int)floorf(tly), jz = (int)floorf(tlz);
     if (jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1) {
       float w8t[8];
       tri_weights(tlx - (float)jx, tly - (float)jy, tlz - (float)jz, w8t);
-      scatter_row(a.gt, corner_row(jx, jy, jz, TX, TY, TZ), w8t, tw);
+      scatter_grid(a.gt, jx, jy, jz, TX, TY, TZ, w8t, tw);
     }
   }
 }
@@ -1568,9 +1591,9 @@ int vpt_record_lanes(int device, void* stream, const float* o_world, int o_strid
 // k_walks] the recorded residuals (k_walks 0: none, PRE+GRAD for every
 // walk), g [n, 3] the cotangent, Lf [n, 3] the forward radiance; a lane
 // retires at counter max_iters (truncation parity) or after max_steps steps.
-// Adds into the corner-row tables gd and gt (gt null without emission) with
-// float atomics; gacc / nsteps [n], or null, get each lane's replayed <g, L>
-// and its steps.
+// Adds into the gradient grids gd [X, Y, Z] and gt [TX, TY, TZ] (null
+// without emission), zeroed by the caller, with float atomics; gacc /
+// nsteps [n], or null, get each lane's replayed <g, L> and its steps.
 int vpt_replay_lanes(int device, void* stream, const float* o_world, int o_stride, const float* d_world,
                      const int* pids, const int* streams, const int* order, int n, int max_steps,
                      int max_iters, const float* tf, int k_walks,

@@ -34,7 +34,10 @@ forward runs the record instantiation of the lane kernel and its backward
 the replay kernel (render/megakernel.py record_lanes / replay_lanes): both
 make each lane's initial state from its ray themselves, the record hands
 the replay each lane's last counter, and the replay takes its lanes longest
-first and scatters with float atomics; the JAX package's two-level compacted scatter
+first and adds each event's 8 weighted corners with float atomics straight
+into the [X, Y, Z] gradient grids, with no corner-row table to fold (the
+tables and fold_corner_rows stay on the plain path, held to the JAX
+package); the JAX package's two-level compacted scatter
 (compact_scatter_fitting) exists to send fewer rows to the TPU's scatter
 engine and computes direct_scatter's sum, which index_add_ and atomics
 compute directly.

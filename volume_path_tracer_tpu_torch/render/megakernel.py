@@ -37,10 +37,12 @@ The gradient path (diff/prb.py trace_rays_prb) has two more:
   replay_lanes       the backward: replay_lanes_kernel walks each lane's path
                      again from its world ray and draw counters, taking the
                      lanes in a given queue order (longest_first of the
-                     record's counters), and adds the gradient into
-                     corner-row tables with float atomics, then the tables
-                     are folded (prb.fold_corner_rows); on CPU tensors its
-                     plain version, diff/prb.py replay_grads.
+                     record's counters), and adds each event's gradient
+                     straight into the [X, Y, Z] gradient grids with float
+                     atomics: no corner-row table and no fold. On CPU
+                     tensors its plain version, diff/prb.py replay_grads,
+                     which scatters into corner-row tables and folds them
+                     (prb.fold_corner_rows), as the JAX package does.
 
 and the train step (diff/inverse.py make_train_step) one:
 
@@ -82,7 +84,6 @@ import torch.nn.functional as F
 from ..diff.prb import (
     MAX_RECORD_ITERS,
     dot3,
-    fold_corner_rows,
     record_state,
     replay_grads,
     replay_iteration_cap,
@@ -959,7 +960,7 @@ def replay_lanes(
     o_world: torch.Tensor, d_world: torch.Tensor, pixel_ids: torch.Tensor, stream,
     L_fwd: torch.Tensor, g_vec: torch.Tensor, tf: Optional[torch.Tensor] = None,
     with_check: bool = False, lane_steps: Optional[torch.Tensor] = None,
-    row_tables: Optional[list] = None, order: Optional[torch.Tensor] = None,
+    order: Optional[torch.Tensor] = None,
     row_tap: Optional[torch.Tensor] = None, stat: Optional[torch.Tensor] = None,
 ):
     """The backward of the gradient path: (d_density [X, Y, Z],
@@ -971,15 +972,15 @@ def replay_lanes(
     thread replays one lane, born from its ray as the record's was, refilled
     from a queue that takes the lanes in `order` (an int32 [N] permutation,
     longest_first of the record's counters; None: index order), and adds
-    each event's 8 corner weights into corner-row tables [(X+1)(Y+1)(Z+1), 8]
-    with two 16-byte float atomics; the tables are then folded
-    (prb.fold_corner_rows). Each lane's replay is the same whatever the
-    order; atomics add in another order on every run, so the gradients equal
-    the plain version's to float tolerance, not bitwise. For measurement
-    (CUDA only): lane_steps, with with_check, an int32 [N] tensor that gets
-    each lane's replay steps; row_tables, a list that gets the unfolded
-    tables (gd, gt); row_tap and stat as in trace_lanes. On CPU tensors this
-    runs replay_lanes_plain.
+    each event's 8 weighted corners straight into the gradient grids it
+    returns (zeroed here, the medium's density shape and, with emission,
+    its temperature shape) with float atomics, dropping the corners outside
+    the grid: no corner-row table and no fold. Each lane's replay is the
+    same whatever the order; atomics add in another order on every run, so
+    the gradients equal the plain version's to float tolerance, not bitwise.
+    For measurement (CUDA only): lane_steps, with with_check, an int32 [N]
+    tensor that gets each lane's replay steps; row_tap and stat as in
+    trace_lanes. On CPU tensors this runs replay_lanes_plain.
     """
     if o_world.device.type == "cpu":
         return replay_lanes_plain(medium, params, bb_table, o_world, d_world, pixel_ids, stream, L_fwd,
@@ -996,12 +997,10 @@ def replay_lanes(
         _check(tf, "tf", torch.float32, (n, k_walks), dev)
     if order is not None:
         _check(order, "order", torch.int32, (n,), dev)
-    X, Y, Z = medium.density.shape
-    gd = torch.zeros(((X + 1) * (Y + 1) * (Z + 1), 8), dtype=torch.float32, device=dev)
-    gt = None
+    d_density = torch.zeros(medium.density.shape, dtype=torch.float32, device=dev)
+    d_temp = None
     if consts.emission:
-        tX, tY, tZ = medium.temperature.shape
-        gt = torch.zeros(((tX + 1) * (tY + 1) * (tZ + 1), 8), dtype=torch.float32, device=dev)
+        d_temp = torch.zeros(medium.temperature.shape, dtype=torch.float32, device=dev)
     gacc = steps = None
     if with_check:
         gacc = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -1010,19 +1009,14 @@ def replay_lanes(
     err = _library().vpt_replay_lanes(
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream, o_world.data_ptr(), o_stride,
         d_world.data_ptr(), pids.data_ptr(), strm.data_ptr(), _ptr(order), n, replay_iteration_cap(params),
-        int(params.max_iters), _ptr(tf), k_walks, g_vec.data_ptr(), L_fwd.data_ptr(), gd.data_ptr(), _ptr(gt),
-        _ptr(gacc), _ptr(steps), *tables,
+        int(params.max_iters), _ptr(tf), k_walks, g_vec.data_ptr(), L_fwd.data_ptr(), d_density.data_ptr(),
+        _ptr(d_temp), _ptr(gacc), _ptr(steps), *tables,
     )
     _raise_on(err, "replay_lanes launch")
     global REPLAY_LAUNCHES, DENSE_REPLAY_LAUNCHES, PADDED_REPLAY_LAUNCHES
     REPLAY_LAUNCHES += 1
     DENSE_REPLAY_LAUNCHES += consts.dense
     PADDED_REPLAY_LAUNCHES += _reads_padded(medium, consts)
-    if row_tables is not None:
-        row_tables.extend((gd, gt))
-    with span("prb.fold"):
-        d_density = fold_corner_rows(gd, (X, Y, Z))
-        d_temp = fold_corner_rows(gt, medium.temperature.shape) if gt is not None else None
     if with_check:
         return d_density, d_temp, gacc, dot3(g_vec, L_fwd)
     return d_density, d_temp
