@@ -15,10 +15,9 @@ Phases, each stopping the run with a non-zero exit on failure:
               then full traces on three small scenes. render_wave (pixel ids
               in, film out): the same three scenes through a small camera.
               Each of these once more on the same media built with
-              pack=False (the dense instantiations of both kernels), in both
-              forms of their arrays (the padded copies a grid that fits in
-              L2 gets, and the grids' own arrays), against the plain
-              version and against the packed kernel's result
+              pack=False (the dense instantiations of both kernels, reading
+              the grids' own arrays), against the plain version and against
+              the packed kernel's result
   4. flagship the main path, Scene.from_config -> render -> film_to_srgb_u8
               -> write_png, on the flagship configuration (wdas_cloud
               transport, fog_sphere(30, 6) = 77^3, 256x256 at 16 waves);
@@ -28,8 +27,7 @@ Phases, each stopping the run with a non-zero exit on failure:
               efficiency and idle tail, the device time against max_steps,
               the ray-batch path (render_rays_wave, which goes through
               trace_lanes), and a profile of one pass. Then the unpacked
-              flagship medium, from its padded copies and from its own
-              arrays: one whole wave by each dense kernel against its plain
+              flagship medium: one whole wave by each dense kernel against its plain
               version and the packed kernel, the dense kernels' lines, the
               dense and packed wave side by side (time, distinct sectors and
               rows read, SIMT efficiency, idle tail), the ray-batch path;
@@ -45,10 +43,9 @@ Phases, each stopping the run with a non-zero exit on failure:
               generated grid is cached in chip_smoke_out/ for later runs).
               The same grid written to .nvdb and read back, C++ core against
               numpy path (host seconds, file size), and rendered unpacked
-              (0.54 GB on the card, no padded copy, a peak of at most
-              1.9 GB): one wave's dense film bitwise equal to the packed
-              kernel's, the two waves side by side, and the same wave from a
-              padded copy (the other side of the L2 rule)
+              (0.54 GB on the card, a peak of at most 1.9 GB): one wave's
+              dense film bitwise equal to the packed kernel's, and the two
+              waves side by side
   7. cli      cli.main on scene files whose volume_path names a .nvdb written
               here (the flagship stand-in and the fire plume, 256x256): the
               medium read back and the film against the direct build; then
@@ -56,10 +53,10 @@ Phases, each stopping the run with a non-zero exit on failure:
   9. train    the gradient path (after phase 8's summary lines): the record
               kernel (lanes born from the rays in the kernel) against
               trace_lanes_kernel fed torch's init_state on the flagship wave
-              (packed, dense from padded copies and from own arrays) and at
+              (packed and dense) and at
               voxel size 0.1: radiance and counters bitwise; on the three
               small scenes, with media rebuilt by medium_with_params, packed
-              and dense (both forms), k_walks 16 and 0, the replay kernel's
+              and dense, k_walks 16 and 0, the replay kernel's
               gradient grids (longest-first order) against the plain
               replay; loss_rays_kernel (the train step's ray batch)
               against its plain version, ids, words and jitter bitwise, on
@@ -82,8 +79,8 @@ Phases, each stopping the run with a non-zero exit on failure:
               overhead, not scaling): 'rays' bitwise the one-device render,
               'spp' within 2e-5 of sequential waves, lane-iterations equal
               to one device's, rays/s beside the one-device render; the
-              unpacked flagship on 4x1 (dense and padded launches per
-              launch as on one device); the density train cell (128x128 x
+              unpacked flagship on 4x1 (dense launches per launch as on one
+              device); the density train cell (128x128 x
               8) through make_train_step on 2x1 against mesh=None (loss
               rtol 1e-5, gradients rtol 1e-4, atol 1e-6); the
               multi-process example at its defaults (1024x1024, 8 waves)
@@ -113,7 +110,6 @@ that a parent commit unpacked with git archive and this one compare on one
 machine, in turns, see compare()); --variants (variants of the kernel
 source timed in turns in one process on the same media, see variants()).
 """
-import dataclasses
 import json
 import os
 import subprocess
@@ -437,7 +433,6 @@ def reset_launch_counts(mk):
     mk.DENSE_WAVE_LAUNCHES = mk.DENSE_LAUNCHES = 0
     mk.RECORD_LAUNCHES = mk.REPLAY_LAUNCHES = mk.PLAIN_RECORD_LAUNCHES = mk.PLAIN_REPLAY_LAUNCHES = 0
     mk.DENSE_RECORD_LAUNCHES = mk.DENSE_REPLAY_LAUNCHES = 0
-    mk.PADDED_WAVE_LAUNCHES = mk.PADDED_LAUNCHES = mk.PADDED_RECORD_LAUNCHES = mk.PADDED_REPLAY_LAUNCHES = 0
     mk.LOSS_RAYS_LAUNCHES = mk.PLAIN_LOSS_RAYS_LAUNCHES = 0
 
 
@@ -514,7 +509,7 @@ def main_path(scene, passes, png_path, what, card):
     render_rays_s = scene.width * scene.height * scene.num_waves / min(render_times)
     counts = dict(render_wave=mk.WAVE_LAUNCHES, trace_lanes=mk.LAUNCHES,
                   render_wave_plain=mk.PLAIN_WAVE_LAUNCHES, trace_lanes_plain=mk.PLAIN_LAUNCHES,
-                  render_wave_dense=mk.DENSE_WAVE_LAUNCHES, render_wave_padded=mk.PADDED_WAVE_LAUNCHES)
+                  render_wave_dense=mk.DENSE_WAVE_LAUNCHES)
     waves = scene.num_waves
     rays_s = scene.width * scene.height * waves / min(times)
     ncap = sum(int(render_wave_image(scene, w, return_ncap=True)[1]) for w in range(1, waves + 1))
@@ -530,9 +525,6 @@ def main_path(scene, passes, png_path, what, card):
     dense_want = counts["render_wave"] if scene.medium.density_rows is None else 0
     check(counts["render_wave_dense"] == dense_want,
           f"{what}: {counts['render_wave_dense']} dense launches, expected {dense_want}")
-    padded_want = dense_want if dense_want and dense_form(scene.medium) == "padded" else 0
-    check(counts["render_wave_padded"] == padded_want,
-          f"{what}: {counts['render_wave_padded']} launches read padded copies, expected {padded_want}")
     check(counts["render_wave_plain"] == 0 and counts["trace_lanes_plain"] == 0,
           f"{what}: the main path ran a plain version")
     check(finite and weights_ok, f"{what}: film is not finite or has wrong weights")
@@ -591,7 +583,7 @@ def host_calls(prof):
 def ptxas_report(log_text):
     """{kernel instantiation: (registers, spill store bytes, spill load
     bytes)} from nvcc's -Xptxas -v report, with template arguments written
-    out (trace_lanes_kernel<false, 2, true>: kTap, the dense form, kRecord)."""
+    out (trace_lanes_kernel<false, 1, true>: kTap, kDense, kRecord)."""
     import re
 
     out, name = {}, None
@@ -870,14 +862,12 @@ def train_phase(card, dev):
 
     # (a) the record kernel against trace_lanes_kernel on the flagship wave:
     # the same rays, the record's lanes born in the kernel, trace_lanes's
-    # from torch's init_state: radiance and counters bitwise; packed, and
-    # dense from the padded copies and from the grids' own arrays
+    # from torch's init_state: radiance and counters bitwise; packed and
+    # dense
     flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
-    for form in ("packed", "padded", "own"):
+    for form in ("packed", "dense"):
         pack = form == "packed"
         med = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=pack)
-        if form == "own":
-            med = without_copies(med)
         sc = Scene.from_config(flag_cfg, med, max_iters=FLAGSHIP_MAX_ITERS)
         W, H = sc.width, sc.height
         pids = torch.arange(W * H, dtype=torch.int32, device=dev)
@@ -936,8 +926,7 @@ def train_phase(card, dev):
 
     # (b) the replay kernel (longest-first order, as on the main path)
     # against the plain replay: three small scenes through
-    # medium_with_params, packed and dense (padded copies and own arrays),
-    # k_walks 16 and 0.
+    # medium_with_params, packed and dense, k_walks 16 and 0.
     dens, temp = fire_plume(height=40, radius=10.0)
     temp_al = dense_grid_from_array(temp.data, temp.origin_ijk, temp.voxel_size, (0.0, 0.0, 0.0))
     bb = torch.from_numpy(blackbody_xyz_table()).to(dev)
@@ -962,38 +951,31 @@ def train_phase(card, dev):
         og = inv.OptimizableGrids(inv.param_from_density(base.density.data),
                                   base.temperature.data if base.temperature is not None else None)
         for pack in (True, False):
+            form = "packed" if pack else "dense"
             med = inv.medium_with_params(base, og, pack=pack)
             plain_args = (med, prm, bbt, o, d, lp, s)
             L_p, tf_p, ctr_p = mk.record_lanes_plain(*plain_args, K)
-            gp_walks = {}
-            # the dense kernels from the padded copies and from the own arrays
-            for form, kmed in ((("packed", med),) if pack else (("padded", med), ("own", without_copies(med)))):
-                check(pack or dense_form(kmed) == form, f"{name}: the rebuilt medium's arrays are not {form}")
-                ray_args = (kmed, prm, bbt, o, d, lp, s)
-                L_k, tf_k, ctr_k = mk.record_lanes(*ray_args, K)
-                agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
-                check(float(agree.float().mean()) > 0.95,
-                      f"{name} ({form}): record kernel and plain agree on {float(agree.float().mean())}")
-                g = g_full * agree[:, None]
-                for kw in (K, 0):
-                    gk = mk.replay_lanes(*ray_args, L_k, g, tf=tf_k if kw else None, order=mk.longest_first(ctr_k))
-                    key = (kw, bytes(agree.cpu().numpy()))
-                    if key not in gp_walks:
-                        gp_walks[key] = mk.replay_lanes_plain(*plain_args, L_p, g, tf=tf_p if kw else None)
-                    gp = gp_walks[key]
-                    errs = []
-                    for what, a, b in (("density", gk[0], gp[0]), ("temperature", gk[1], gp[1])):
-                        if b is None:
-                            continue
-                        check(float(b.abs().max()) > 0, f"{name}: zero plain {what} gradient")
-                        errs.append((what, rel_l2(a, b)))
-                    worst = max([worst] + [e for _, e in errs])
-                    n_cases += 1
-                    print(f"replay kernel, {name} ({form}, k_walks {kw}, {N} lanes, "
-                          f"{int(agree.sum())} with the cotangent): relative L2 against the plain replay "
-                          + ", ".join(f"{w} {e:.2e}" for w, e in errs))
-                    for what, e in errs:
-                        check(e <= 1e-3, f"{name} ({form}, k_walks {kw}): {what} gradient relative L2 {e} > 1e-3")
+            L_k, tf_k, ctr_k = mk.record_lanes(*plain_args, K)
+            agree = torch.isclose(L_k, L_p, rtol=1e-4, atol=1e-5).all(-1)
+            check(float(agree.float().mean()) > 0.95,
+                  f"{name} ({form}): record kernel and plain agree on {float(agree.float().mean())}")
+            g = g_full * agree[:, None]
+            for kw in (K, 0):
+                gk = mk.replay_lanes(*plain_args, L_k, g, tf=tf_k if kw else None, order=mk.longest_first(ctr_k))
+                gp = mk.replay_lanes_plain(*plain_args, L_p, g, tf=tf_p if kw else None)
+                errs = []
+                for what, a, b in (("density", gk[0], gp[0]), ("temperature", gk[1], gp[1])):
+                    if b is None:
+                        continue
+                    check(float(b.abs().max()) > 0, f"{name}: zero plain {what} gradient")
+                    errs.append((what, rel_l2(a, b)))
+                worst = max([worst] + [e for _, e in errs])
+                n_cases += 1
+                print(f"replay kernel, {name} ({form}, k_walks {kw}, {N} lanes, "
+                      f"{int(agree.sum())} with the cotangent): relative L2 against the plain replay "
+                      + ", ".join(f"{w} {e:.2e}" for w, e in errs))
+                for what, e in errs:
+                    check(e <= 1e-3, f"{name} ({form}, k_walks {kw}): {what} gradient relative L2 {e} > 1e-3")
     print(f"replay kernel, {n_cases} small cases: worst relative L2 {worst:.2e} (bound 1e-3: float atomics add in "
           f"another order every run, FMA contraction); {time.perf_counter() - t_cases:.1f} s with the plain versions")
 
@@ -1089,9 +1071,8 @@ def train_phase(card, dev):
     replay_index_ms = float(np.mean(turns["index order"]))
 
     def regs_of(kernel):
-        r = [regs.get(kernel.format(form), (0, 0, 0)) for form in (0, 2, 1)]
-        return (f"{r[0][0]} / {r[1][0]} / {r[2][0]} registers, spill stores {r[0][1]} / {r[1][1]} / {r[2][1]} B "
-                "(packed / dense, padded copies / dense, own arrays)")
+        r = [regs.get(kernel.format(dense), (0, 0, 0)) for dense in (0, 1)]
+        return f"{r[0][0]} / {r[1][0]} registers, spill stores {r[0][1]} / {r[1][1]} B (packed / dense)"
 
     def stat_words(st):
         return (f"SIMT efficiency as issued {st['simt_efficiency']:.4f} ({st['warp_steps']} warp-steps on "
@@ -1167,9 +1148,7 @@ def train_phase(card, dev):
 def wave_cells(dev):
     """The cells --variants and --compare time, each packed and unpacked:
     {(cell, pack): Scene} for the flagship (256x256 and 1920x1080), the fire
-    cell (8-wide rows packed) and the 512^3 cloud. The unpacked media are
-    built as the port builds them (with padded copies where it keeps
-    them)."""
+    cell (8-wide rows packed) and the 512^3 cloud."""
     import torch
 
     from volume_path_tracer_tpu_torch.grids.procedural import fire_plume, fog_sphere
@@ -1201,29 +1180,13 @@ def wave_cells(dev):
     return cells
 
 
-def dense_form(medium):
-    """How the dense kernels read this unpacked medium: "padded" (the grids'
-    padded copies) or "own" (the grids' own arrays, as commits before the
-    copies always do)."""
-    return "padded" if getattr(medium.density, "padded", None) is not None else "own"
-
-
-def without_copies(medium):
-    """The same unpacked medium with its grids' padded copies dropped: the
-    dense kernels then read the grids' own arrays, the form a grid too large
-    for L2 takes."""
-    t = medium.temperature
-    return dataclasses.replace(medium, density=dataclasses.replace(medium.density),
-                               temperature=dataclasses.replace(t) if t is not None else None)
-
-
 def time_wave_cells(cells, card, label):
     """Wave 1 of every cell of wave_cells, packed and dense side by side:
     render_wave_kernel device ms (CUPTI, kernel_device_ms of 10, or 5 above
     65,536 pixels), the films, and from a measuring launch (not at
     1920x1080) lane-steps, what the wave read, SIMT efficiency and idle
-    tail. Prints one line a cell; returns ({cell: {packed_ms, dense_ms,
-    dense_form}}, {(cell, pack): film})."""
+    tail. Prints one line a cell; returns ({cell: {packed_ms, dense_ms}},
+    {(cell, pack): film})."""
     import torch
 
     from volume_path_tracer_tpu_torch.render import megakernel as mk
@@ -1248,8 +1211,7 @@ def time_wave_cells(cells, card, label):
                     film=scratch, pixels=range(0, n), row_tap=tap, stat=stat, **kw), sc.bb_table)
                 got[pack].update(st, read=tap_bytes(sc.medium, sc.params, sc.bb_table, tap)[1])
         p, d = got[True], got[False]
-        form = dense_form(cells[cell, False].medium)
-        line = (f"{label}, {cell} wave 1: render_wave_kernel packed | dense ({form}) {p['ms']:.4f} | "
+        line = (f"{label}, {cell} wave 1: render_wave_kernel packed | dense {p['ms']:.4f} | "
                 f"{d['ms']:.4f} ms (dense / packed {d['ms'] / p['ms']:.3f}); dense film bitwise equal to the "
                 f"packed film {bool(torch.equal(films[cell, True], films[cell, False]))}")
         if "lane_steps" in p:
@@ -1257,7 +1219,7 @@ def time_wave_cells(cells, card, label):
                      f"SIMT efficiency {p['simt_efficiency']:.4f} | {d['simt_efficiency']:.4f}; under half of "
                      f"the warps at work for {p['half_idle_share']:.3f} | {d['half_idle_share']:.3f}")
         print(line + f" on {card}", flush=True)
-        summary[cell] = {"packed_ms": p["ms"], "dense_ms": d["ms"], "dense_form": form}
+        summary[cell] = {"packed_ms": p["ms"], "dense_ms": d["ms"]}
     return summary, films
 
 
@@ -1328,8 +1290,7 @@ def mesh_phase(card, dev):
 
     t_phase = time.perf_counter()
     print(f"torch.cuda.device_count() {torch.cuda.device_count()}", flush=True)
-    launches = {"render_wave": 0, "render_wave_dense": 0, "render_wave_dense_own": 0, "record": 0, "replay": 0,
-                "loss_rays": 0}
+    launches = {"render_wave": 0, "render_wave_dense": 0, "record": 0, "replay": 0, "loss_rays": 0}
     flag_cfg = loads_configuration(json.dumps(WDAS_SCENE))
     grid = fog_sphere(radius=30.0, falloff=6.0)
     for pack in (True, False):
@@ -1346,7 +1307,7 @@ def mesh_phase(card, dev):
             film_1 = render(sc)
             torch.cuda.synchronize()
             one_s.append(time.perf_counter() - t0)
-        one = dict(wave=mk.WAVE_LAUNCHES, dense=mk.DENSE_WAVE_LAUNCHES, padded=mk.PADDED_WAVE_LAUNCHES)
+        one = dict(wave=mk.WAVE_LAUNCHES, dense=mk.DENSE_WAVE_LAUNCHES)
         raster, pids, npix = shard.pad_ray_batch(W, H, 4)
         for rays, spp in MESH_SHAPES if pack else MESH_SHAPES[:1]:
             mesh = shard.make_mesh(rays * spp, spp=spp, devices=mesh_devices(dev, rays * spp))
@@ -1359,18 +1320,16 @@ def mesh_phase(card, dev):
                 film = shard.render_film_sharded(mesh, sc.medium, sc.params, sc.camera, bb, W, H, sc.seed, waves)
                 torch.cuda.synchronize()
                 mesh_s.append(time.perf_counter() - t0)
-            got = dict(wave=mk.WAVE_LAUNCHES, dense=mk.DENSE_WAVE_LAUNCHES, padded=mk.PADDED_WAVE_LAUNCHES,
+            got = dict(wave=mk.WAVE_LAUNCHES, dense=mk.DENSE_WAVE_LAUNCHES,
                        plain=mk.PLAIN_WAVE_LAUNCHES + mk.PLAIN_LAUNCHES + mk.LAUNCHES)
             launches["render_wave"] += got["wave"] - got["dense"]
-            launches["render_wave_dense"] += got["padded"]
-            launches["render_wave_dense_own"] += got["dense"] - got["padded"]
+            launches["render_wave_dense"] += got["dense"]
             calls = waves // spp
             check(got["wave"] == calls * mesh.size and got["plain"] == 0,
                   f"{what} {rays}x{spp}: {got} launches, expected {calls * mesh.size} wave kernel launches alone")
-            # the dense and padded launches per wave launch: the one-device path's
-            check(got["dense"] * one["wave"] == one["dense"] * got["wave"]
-                  and got["padded"] * one["wave"] == one["padded"] * got["wave"],
-                  f"{what} {rays}x{spp}: dense / padded launches {got} against one device's {one}")
+            # the dense launches per wave launch: the one-device path's
+            check(got["dense"] * one["wave"] == one["dense"] * got["wave"],
+                  f"{what} {rays}x{spp}: dense launches {got} against one device's {one}")
             if spp == 1:
                 ref, same = film_1, bool(torch.equal(film, film_1))
                 check(same, f"{what} {rays}x{spp}: the film differs from the one-device render")
@@ -1502,8 +1461,8 @@ def mesh_phase(card, dev):
 BENCH_RTOL = 0.10
 # The launch counters of render.megakernel that the bench's primary may move
 # (the wave kernel) and those it must leave at 0.
-BENCH_COUNTERS = ("WAVE_LAUNCHES", "DENSE_WAVE_LAUNCHES", "PADDED_WAVE_LAUNCHES", "LAUNCHES", "DENSE_LAUNCHES",
-                  "PADDED_LAUNCHES", "RECORD_LAUNCHES", "REPLAY_LAUNCHES", "DENSE_RECORD_LAUNCHES",
+BENCH_COUNTERS = ("WAVE_LAUNCHES", "DENSE_WAVE_LAUNCHES", "LAUNCHES", "DENSE_LAUNCHES",
+                  "RECORD_LAUNCHES", "REPLAY_LAUNCHES", "DENSE_RECORD_LAUNCHES",
                   "DENSE_REPLAY_LAUNCHES", "PLAIN_WAVE_LAUNCHES", "PLAIN_LAUNCHES", "PLAIN_RECORD_LAUNCHES",
                   "PLAIN_REPLAY_LAUNCHES", "LOSS_RAYS_LAUNCHES", "PLAIN_LOSS_RAYS_LAUNCHES")
 
@@ -1561,10 +1520,7 @@ def bench_phase(card, dev, build_s, render_rays_s=None):
     print(json.dumps(v), flush=True)
     return {"render_wave": counts["WAVE_LAUNCHES"] - counts["DENSE_WAVE_LAUNCHES"],
             "trace_lanes": counts["LAUNCHES"] - counts["DENSE_LAUNCHES"],
-            "render_wave_dense": counts["PADDED_WAVE_LAUNCHES"],
-            "render_wave_dense_own": counts["DENSE_WAVE_LAUNCHES"] - counts["PADDED_WAVE_LAUNCHES"],
-            "trace_lanes_dense": counts["PADDED_LAUNCHES"],
-            "trace_lanes_dense_own": counts["DENSE_LAUNCHES"] - counts["PADDED_LAUNCHES"],
+            "render_wave_dense": counts["DENSE_WAVE_LAUNCHES"], "trace_lanes_dense": counts["DENSE_LAUNCHES"],
             "record_lanes": counts["RECORD_LAUNCHES"], "replay_lanes": counts["REPLAY_LAUNCHES"],
             "loss_rays": counts["LOSS_RAYS_LAUNCHES"]}
 
@@ -1616,7 +1572,7 @@ def compare(repo_dir):
     for layout, m in (("packed", med), ("dense", dense_med)):
         rec_ms, rep_ms = grad_kernel_times(mk, m, wdas, rays, g)
         grads[layout] = {"record_ms": rec_ms, "replay_ms": rep_ms}
-        print(f"density step {layout}{f' ({dense_form(m)})' if layout == 'dense' else ''}: record kernel "
+        print(f"density step {layout}: record kernel "
               f"{rec_ms:.4f} ms, replay kernel {rep_ms:.4f} ms (device time, mean of the kept records of 3 "
               f"windows of 5 launches) on {card}", flush=True)
     del med, dense_med
@@ -1642,7 +1598,7 @@ def main(only=None):
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from volume_path_tracer_tpu_torch.grids.grid import dense_grid_from_array, with_padded_copy
+    from volume_path_tracer_tpu_torch.grids.grid import dense_grid_from_array
     from volume_path_tracer_tpu_torch.grids.procedural import fire_plume, fog_sphere
     from volume_path_tracer_tpu_torch.models.camera import Camera
     from volume_path_tracer_tpu_torch.models.medium import Medium
@@ -1682,9 +1638,8 @@ def main(only=None):
         for line in f:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip()[:160])
-    for form, dense, padded in (("packed", False, False), ("dense, own arrays", True, False),
-                                ("dense, padded copies", True, True)):
-        occ = mk.occupancy(dev, dense, padded)
+    for form, dense in (("packed", False), ("dense", True)):
+        occ = mk.occupancy(dev, dense)
         print(f"occupancy ({form}): resident blocks of {occ.threads} threads per SM on "
               f"{occ.sms} SMs: render_wave_kernel {occ.wave / occ.sms:.2f}, trace_lanes_kernel "
               f"{occ.trace / occ.sms:.2f}, its record instantiation {occ.record / occ.sms:.2f}, replay_lanes_kernel "
@@ -1736,28 +1691,22 @@ def main(only=None):
           f"int fields equal where floats agree: {bool(i_ok[f_ok].all())}, max_abs_err {one_step_max_abs:.3e}")
     check(one_step_agree >= 0.99, f"one-step agreement {one_step_agree} < 0.99")
     check(bool(i_ok[f_ok].all()), "integer fields differ where the float fields agree")
-    # the same step by the dense instantiations, on the same medium unpacked:
-    # the padded copies (the form this grid takes on the card), and the
-    # grids' own arrays (the form of a grid too large for L2)
+    # the same step by the dense instantiation, on the same medium unpacked
     flag_dense = Medium.from_grids(fog_sphere(radius=30.0, falloff=6.0), pack=False)
-    flag_own = without_copies(flag_dense)
-    check(dense_form(flag_dense) == "padded", "the unpacked flagship medium keeps no padded copies on the card")
     dpf, dpi = mk.trace_lanes_plain(flag_dense, flag.params, None, sf_mid, si_mid, pids, streams, 1)
-    dense_step_max_abs = {}
-    for form, dmed in (("padded", flag_dense), ("own", flag_own)):
-        dkf, dki = mk.trace_lanes(dmed, flag.params, None, sf_mid, si_mid, pids, streams, 1)
-        torch.cuda.synchronize()
-        df_ok = torch.isclose(dkf, dpf, rtol=1e-5, atol=1e-6).all(0)
-        dense_step_agree = float(df_ok.float().mean())
-        dense_step_max_abs[form] = float((dkf - dpf).abs().max())
-        dense_step_same = bool(torch.equal(dkf, kf) and torch.equal(dki, ki))
-        print(f"one step, dense instantiation ({form} arrays): agree {dense_step_agree:.6f} with its plain version, "
-              f"max_abs_err {dense_step_max_abs[form]:.3e}; bitwise equal to the packed kernel's step: "
-              f"{dense_step_same}; plain unpacked bitwise equal to plain packed: "
-              f"{bool(torch.equal(dpf, pf) and torch.equal(dpi, pi))}")
-        check(dense_step_agree >= 0.99, f"dense ({form}) one-step agreement {dense_step_agree} < 0.99")
-        check(bool((dki == dpi).all(0)[df_ok].all()), f"dense ({form}): integer fields differ where the float fields agree")
-        check(dense_step_same, f"the dense ({form}) step differs from the packed step on the same medium")
+    dkf, dki = mk.trace_lanes(flag_dense, flag.params, None, sf_mid, si_mid, pids, streams, 1)
+    torch.cuda.synchronize()
+    df_ok = torch.isclose(dkf, dpf, rtol=1e-5, atol=1e-6).all(0)
+    dense_step_agree = float(df_ok.float().mean())
+    dense_step_max_abs = float((dkf - dpf).abs().max())
+    dense_step_same = bool(torch.equal(dkf, kf) and torch.equal(dki, ki))
+    print(f"one step, dense instantiation: agree {dense_step_agree:.6f} with its plain version, "
+          f"max_abs_err {dense_step_max_abs:.3e}; bitwise equal to the packed kernel's step: "
+          f"{dense_step_same}; plain unpacked bitwise equal to plain packed: "
+          f"{bool(torch.equal(dpf, pf) and torch.equal(dpi, pi))}")
+    check(dense_step_agree >= 0.99, f"dense one-step agreement {dense_step_agree} < 0.99")
+    check(bool((dki == dpi).all(0)[df_ok].all()), "dense: integer fields differ where the float fields agree")
+    check(dense_step_same, "the dense step differs from the packed step on the same medium")
 
     # (b) full traces on the three scenes of tests/test_megakernel.py:
     # trace_lanes on a ray batch, render_wave through a small camera
@@ -1784,14 +1733,9 @@ def main(only=None):
         s = vrng.mix_stream(3, 1)
         cam = Camera.from_parameters(cam_p, (SW, SH))
         packed = None
-        for form in ("packed", "padded", "own"):
-            pack = form == "packed"
+        for pack in (True, False):
             med = Medium.from_grids(*grids, pack=pack)
-            if form == "own":
-                med = without_copies(med)
-            if not pack:
-                check(dense_form(med) == form, f"{name}: the unpacked medium's arrays are not {form}")
-            layout = f"{med.density_rows.shape[1]}-wide rows" if pack else f"unpacked, dense instantiation, {form} arrays"
+            layout = f"{med.density_rows.shape[1]}-wide rows" if pack else "unpacked, dense instantiation"
             L_k, _, nc_k = mk.trace_rays_fused(med, prm, bbt, o, d, lp, s)
             sfa, sia = mk.pack_state(integ.init_state(med, o, d, prm))
             sfp, sip = mk.trace_lanes_plain(med, prm, bbt, sfa, sia, lp, integ.lane_streams(s, N, dev),
@@ -1818,11 +1762,11 @@ def main(only=None):
             # instead, another arithmetic: the line says what it found.
             same = bool(torch.equal(L_k, packed[0])), bool(torch.equal(films[0], packed[1]))
             close = float(torch.isclose(films[0], packed[1], rtol=1e-4, atol=1e-5).all(-1).float().mean())
-            print(f"dense ({form} arrays) against packed kernel, {name}: trace_lanes bitwise equal {same[0]}, "
+            print(f"dense against packed kernel, {name}: trace_lanes bitwise equal {same[0]}, "
                   f"render_wave bitwise equal {same[1]}, pixels close {close:.4f}")
             if name != "fire_plume_16wide":
-                check(all(same), f"{name}: the dense kernels ({form} arrays) differ from the packed kernels")
-            check(close > 0.95, f"{name}: dense ({form}) and packed films differ on {1 - close:.3f} of the pixels")
+                check(all(same), f"{name}: the dense kernels differ from the packed kernels")
+            check(close > 0.95, f"{name}: dense and packed films differ on {1 - close:.3f} of the pixels")
     del packed, films, med
 
     # ------------------------------------------------------------------
@@ -1955,9 +1899,7 @@ def main(only=None):
     # ---- the same medium unpacked: the dense instantiations ----
     # One whole wave by each dense kernel against its plain version (the
     # statistic the packed kernels are held to) and against the packed
-    # kernel's result (the same corners in the same order: bitwise), in both
-    # forms: the padded copies (this grid's form on the card) and the grids'
-    # own arrays (the form of a grid too large for L2).
+    # kernel's result (the same corners in the same order: bitwise).
     dflag = Scene.from_config(flag_cfg, flag_dense, max_iters=FLAGSHIP_MAX_ITERS)
     dkw = wave_args(dflag, 1)
     film_dp = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
@@ -1973,55 +1915,44 @@ def main(only=None):
     print(f"flagship wave, plain versions on the unpacked medium: render_wave_plain {dense_wave_plain_ms:.1f} ms "
           f"(bitwise equal to plain packed {bool(torch.equal(film_dp, film_p))}), trace_lanes_plain "
           f"{dense_plain_ms:.1f} ms")
-    dense = {}
-    for form, dmed in (("padded", flag_dense), ("own", flag_own)):
-        dsc = dflag if form == "padded" else Scene.from_config(flag_cfg, dmed, max_iters=FLAGSHIP_MAX_ITERS)
-        film_d = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
-        it_d, nc_d = mk.render_wave(film=film_d, pixels=range(0, n), **wave_args(dsc, 1))
-        torch.cuda.synchronize()
-        film_statistic(film_d, int(nc_d), film_dp, int(nc_dp), f"render_wave flagship wave, dense instantiation "
-                       f"({form} arrays; longest lane {int(it_d)} vs {int(it_dp)})")
-        wave_max_abs_d = float((film_d - film_dp).abs().max())
-        lane_iters_d = (lane_iters_check(mk, film_d, dict(wave_args(dsc, 1), pixels=range(0, n)), li_dp,
-                                         f"flagship wave, dense ({form} arrays)"), int(li_dp))
-        film_same = bool(torch.equal(film_d, film_k))
-        print(f"render_wave flagship wave ({form} arrays): dense film bitwise equal to the packed kernel's "
-              f"{film_same}; max_abs_err against the plain version {wave_max_abs_d:.3e}")
-        check(film_same, f"the dense wave kernel's flagship film ({form} arrays) differs from the packed kernel's")
-        wave_rep_d = wave_kernel_report(dsc, f"flagship, dense instantiation, {form} arrays", card)
-        dense_beside_packed(wave_rep, wave_rep_d, f"flagship ({form} arrays)", card)
+    film_d = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+    it_d, nc_d = mk.render_wave(film=film_d, pixels=range(0, n), **dkw)
+    torch.cuda.synchronize()
+    film_statistic(film_d, int(nc_d), film_dp, int(nc_dp), f"render_wave flagship wave, dense instantiation "
+                   f"(longest lane {int(it_d)} vs {int(it_dp)})")
+    wave_max_abs_d = float((film_d - film_dp).abs().max())
+    lane_iters_d = (lane_iters_check(mk, film_d, dict(dkw, pixels=range(0, n)), li_dp, "flagship wave, dense"),
+                    int(li_dp))
+    film_same = bool(torch.equal(film_d, film_k))
+    print(f"render_wave flagship wave: dense film bitwise equal to the packed kernel's "
+          f"{film_same}; max_abs_err against the plain version {wave_max_abs_d:.3e}")
+    check(film_same, "the dense wave kernel's flagship film differs from the packed kernel's")
+    wave_rep_d = wave_kernel_report(dflag, "flagship, dense instantiation", card)
+    dense_beside_packed(wave_rep, wave_rep_d, "flagship", card)
 
-        def dense_kernel_wave():
-            return mk.trace_lanes(dmed, flag.params, None, sf0, si0, pids, streams, FLAGSHIP_MAX_ITERS)
+    def dense_kernel_wave():
+        return mk.trace_lanes(flag_dense, flag.params, None, sf0, si0, pids, streams, FLAGSHIP_MAX_ITERS)
 
-        sf_d, si_d = dense_kernel_wave()
-        wrapper_ms = cuda_ms(dense_kernel_wave, 10)
-        trace_statistic(sf_d[10:13].T.cpu().numpy(), int((si_d[1] != integ.DONE).sum()),
-                        sf_dp[10:13].T.cpu().numpy(), int((si_dp[1] != integ.DONE).sum()),
-                        f"trace_lanes flagship wave, dense instantiation ({form} arrays, {n} lanes)")
-        check(bool(torch.equal(sf_d, sf_k) and torch.equal(si_d, si_k)),
-              f"the dense trace_lanes kernel's flagship state ({form} arrays) differs from the packed kernel's")
-        trace_ms = kernel_device_ms(dense_kernel_wave, 10, "trace_lanes_kernel")
-        t_bound_ms, t_bound_by = trace_lanes_report(dmed, si_d, trace_ms, wrapper_ms, dense_plain_ms,
-                                                    f"unpacked, {form} arrays")
-        # the unpacked ray-batch path
-        reset_launch_counts(mk)
-        d_contrib, _, d_nc = render_rays_wave(dmed, flag.params, flag.camera, None, coords, pids, flag.seed, 1,
-                                              flag.use_jitter, flag.camera.imaging_ratio)
-        trace_launches_d = mk.PADDED_LAUNCHES if form == "padded" else mk.DENSE_LAUNCHES - mk.PADDED_LAUNCHES
-        check(trace_launches_d == 1 and mk.DENSE_LAUNCHES == 1 and mk.LAUNCHES == 1 and mk.PLAIN_LAUNCHES == 0,
-              f"render_rays_wave on the unpacked medium did not go through the dense trace_lanes_kernel "
-              f"({form} arrays)")
-        film_statistic(d_contrib, int(d_nc), film_d, int(nc_d), f"render_rays_wave against render_wave, unpacked, "
-                       f"{form} arrays")
-        dense[form] = dict(wave_rep=wave_rep_d, wave_max_abs=wave_max_abs_d, lane_iters=lane_iters_d,
-                           trace_ms=trace_ms,
-                           trace_bound=(t_bound_ms, t_bound_by), trace_launches=trace_launches_d,
-                           step_max_abs=dense_step_max_abs[form])
-        del film_d, sf_d, si_d, d_contrib, dsc
-    print(f"flagship dense wave kernel, padded copies | own arrays: {dense['padded']['wave_rep']['ms']:.4f} | "
-          f"{dense['own']['wave_rep']['ms']:.4f} ms (padded / own "
-          f"{dense['padded']['wave_rep']['ms'] / dense['own']['wave_rep']['ms']:.3f}) on {card}")
+    sf_d, si_d = dense_kernel_wave()
+    wrapper_ms = cuda_ms(dense_kernel_wave, 10)
+    trace_statistic(sf_d[10:13].T.cpu().numpy(), int((si_d[1] != integ.DONE).sum()),
+                    sf_dp[10:13].T.cpu().numpy(), int((si_dp[1] != integ.DONE).sum()),
+                    f"trace_lanes flagship wave, dense instantiation ({n} lanes)")
+    check(bool(torch.equal(sf_d, sf_k) and torch.equal(si_d, si_k)),
+          "the dense trace_lanes kernel's flagship state differs from the packed kernel's")
+    trace_ms = kernel_device_ms(dense_kernel_wave, 10, "trace_lanes_kernel")
+    t_bound_ms, t_bound_by = trace_lanes_report(flag_dense, si_d, trace_ms, wrapper_ms, dense_plain_ms, "unpacked")
+    # the unpacked ray-batch path
+    reset_launch_counts(mk)
+    d_contrib, _, d_nc = render_rays_wave(flag_dense, flag.params, flag.camera, None, coords, pids, flag.seed, 1,
+                                          flag.use_jitter, flag.camera.imaging_ratio)
+    check(mk.DENSE_LAUNCHES == 1 and mk.LAUNCHES == 1 and mk.PLAIN_LAUNCHES == 0,
+          "render_rays_wave on the unpacked medium did not go through the dense trace_lanes_kernel")
+    film_statistic(d_contrib, int(d_nc), film_d, int(nc_d), "render_rays_wave against render_wave, unpacked")
+    dense = dict(wave_rep=wave_rep_d, wave_max_abs=wave_max_abs_d, lane_iters=lane_iters_d, trace_ms=trace_ms,
+                 trace_bound=(t_bound_ms, t_bound_by), trace_launches=mk.DENSE_LAUNCHES,
+                 step_max_abs=dense_step_max_abs)
+    del film_d, sf_d, si_d, d_contrib
     # the unpacked main path (render -> tonemap -> PNG)
     _, dflag_rays_s, dncap, dflag_counts, _ = main_path(dflag, 2, os.path.join(OUT_DIR, "flagship_unpacked.png"),
                                                      "flagship unpacked", card)
@@ -2030,7 +1961,7 @@ def main(only=None):
 
     # ------------------------------------------------------------------
     phase("5 fire")
-    del flag, flag_med, flag_dense, flag_own
+    del flag, flag_med, flag_dense
     torch.cuda.empty_cache()
     fire_cfg = loads_configuration(json.dumps(FIRE_SCENE))
     f_dens, f_temp = fire_plume(height=96, radius=28.0)
@@ -2042,8 +1973,6 @@ def main(only=None):
         label = "fire unpacked" if width == "unpacked" else f"fire {width}-wide rows"
         if width == "unpacked":
             check(med.density_rows is None and med.temperature_rows is None, "the unpacked fire medium has tables")
-            check(dense_form(med) == "padded" and med.temperature.padded is not None,
-                  "the unpacked fire medium keeps no padded copies on the card")
         else:
             check(med.density_rows.shape[1] == width, f"fire medium has {med.density_rows.shape[1]}-wide rows")
         sc = Scene.from_config(fire_cfg, med, max_iters=FIRE_MAX_ITERS)
@@ -2145,8 +2074,7 @@ def main(only=None):
     os.remove(nvdb_path)
     del read_back, g, inside, cloud_np
 
-    # ---- the same cloud unpacked: 0.54 GB on the card instead of 4.33 GB;
-    # too large for L2, so no padded copy ----
+    # ---- the same cloud unpacked: 0.54 GB on the card instead of 4.33 GB ----
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -2154,12 +2082,10 @@ def main(only=None):
     torch.cuda.synchronize()
     dense_build_s = time.perf_counter() - t0
     resident = torch.cuda.memory_allocated() - before
-    check(dense_form(cloud_dense) == "own", "the unpacked 512^3 medium keeps a padded copy")
     dcloud_scene = Scene.from_config(cloud_cfg, cloud_dense, max_iters=FLAGSHIP_MAX_ITERS)
     _, dcloud_rays_s, dcloud_ncap, dcloud_counts, _ = main_path(
         dcloud_scene, 2, os.path.join(OUT_DIR, "big_cloud_512_unpacked.png"), "big_cloud 512^3 unpacked", card)
     check(dcloud_ncap == 0, f"{dcloud_ncap} unpacked 512^3 rays truncated at max_iters {FLAGSHIP_MAX_ITERS}")
-    dcloud_own_launches = dcloud_counts["render_wave_dense"] - dcloud_counts["render_wave_padded"]
     dpeak = torch.cuda.max_memory_allocated()
     dcloud_rep = wave_kernel_report(dcloud_scene, "big_cloud 512^3 unpacked", card)
     # One whole 512^3 wave by the dense kernel against the packed kernel's:
@@ -2167,24 +2093,14 @@ def main(only=None):
     dcloud_film = render_wave_image(dcloud_scene, 1)
     cloud_same = bool(torch.equal(dcloud_film, cloud_film))
     print(f"big_cloud 512^3 unpacked: medium build {dense_build_s:.2f} s, density array "
-          f"{cloud_dense.density.data.numel() * 4 / 1e9:.2f} GB (no padded copy), medium resident "
+          f"{cloud_dense.density.data.numel() * 4 / 1e9:.2f} GB, medium resident "
           f"{resident / 1e9:.2f} GB, peak device memory {dpeak / 1e9:.2f} GB "
           f"(packed: {peak / 1e9:.2f} GB); rays/s {dcloud_rays_s:.1f} (packed: {cloud_rays_s:.1f}); wave 1's dense "
           f"film bitwise equal to the packed kernel's {cloud_same} on {card}")
     check(cloud_same, "the dense wave kernel's 512^3 film differs from the packed kernel's")
     check(dpeak <= 1.9e9, f"the unpacked 512^3 render peaked at {dpeak / 1e9:.2f} GB of device memory, over 1.9 GB")
     dense_beside_packed(cloud_rep, dcloud_rep, "big_cloud 512^3", card)
-    # The other side of the choice: the same wave from a padded copy, which
-    # this grid does not get (it does not fit in L2)
-    cloud_padded = dataclasses.replace(cloud_dense, density=with_padded_copy(cloud_dense.density))
-    pcloud_scene = Scene.from_config(cloud_cfg, cloud_padded, max_iters=FLAGSHIP_MAX_ITERS)
-    pcloud_same = bool(torch.equal(render_wave_image(pcloud_scene, 1), cloud_film))
-    pcloud_rep = wave_kernel_report(pcloud_scene, "big_cloud 512^3 unpacked, padded copy", card)
-    print(f"big_cloud 512^3 dense wave kernel, own arrays | padded copy: {dcloud_rep['ms']:.4f} | "
-          f"{pcloud_rep['ms']:.4f} ms (padded / own {pcloud_rep['ms'] / dcloud_rep['ms']:.3f}); padded film bitwise "
-          f"equal to the packed kernel's {pcloud_same} on {card}")
-    check(pcloud_same, "the dense wave kernel's 512^3 film from a padded copy differs from the packed kernel's")
-    del cloud, cloud_dense, dcloud_scene, cloud_film, dcloud_film, cloud_padded, pcloud_scene
+    del cloud, cloud_dense, dcloud_scene, cloud_film, dcloud_film
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -2302,10 +2218,8 @@ def main(only=None):
         "render_wave": flag_counts["render_wave"], "render_wave_plain": flag_counts["render_wave_plain"],
         "trace_lanes": trace_launches, "trace_lanes_plain": trace_plain,
         "render_wave_from_nvdb_scenes": nvdb_launches,
-        "render_wave_dense_padded": dflag_counts["render_wave_padded"],
-        "render_wave_dense_own": dcloud_own_launches,
-        "trace_lanes_dense_padded": dense["padded"]["trace_launches"],
-        "trace_lanes_dense_own": dense["own"]["trace_launches"]}))
+        "render_wave_dense": dflag_counts["render_wave_dense"] + dcloud_counts["render_wave_dense"],
+        "trace_lanes_dense": dense["trace_launches"]}))
     print(f"flagship_rays_per_s {flag_rays_s:.1f} fire_8wide_rays_per_s {fire_rays_s[8]:.1f} "
           f"fire_16wide_rays_per_s {fire_rays_s[16]:.1f} big_cloud_512_rays_per_s {cloud_rays_s:.1f} "
           f"flagship_unpacked_rays_per_s {dflag_rays_s:.1f} fire_unpacked_rays_per_s "
@@ -2341,23 +2255,20 @@ def main(only=None):
          "launches": trace_launches, "max_abs_err": one_step_max_abs, "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
         # The dense instantiations of the same two kernels (a medium without
-        # the fused table), reading the padded copies (grids that fit in L2)
-        # or the grids' own arrays: launches on the unpacked main paths (the
-        # flagship render and ray batch read the copies, the 512^3 render
-        # the own arrays); times, errors and bounds on the flagship wave.
-        *({"name": f"render_wave_dense{suffix}", "route": "cuda", "source": source, "replaces": replaces,
-           "launches": dflag_counts["render_wave_padded"] if form == "padded" else dcloud_own_launches,
-           "launches_sharded": sharded[f"render_wave_dense{suffix}"],
-           "max_abs_err": dense[form]["wave_max_abs"], "ms": dense[form]["wave_rep"]["ms"],
-           "plain_ms": dense_wave_plain_ms, "bound_ms": dense[form]["wave_rep"]["bound_ms"],
-           "bound_by": dense[form]["wave_rep"]["bound_by"], "library_ms": None,
-           "lane_iters": dense[form]["lane_iters"][0], "lane_iters_plain": dense[form]["lane_iters"][1]}
-          for form, suffix in (("padded", ""), ("own", "_own"))),
-        *({"name": f"trace_lanes_dense{suffix}", "route": "cuda", "source": source, "replaces": replaces,
-           "launches": dense[form]["trace_launches"], "max_abs_err": dense[form]["step_max_abs"],
-           "ms": dense[form]["trace_ms"], "plain_ms": dense_plain_ms, "bound_ms": dense[form]["trace_bound"][0],
-           "bound_by": dense[form]["trace_bound"][1], "library_ms": None}
-          for form, suffix in (("padded", ""), ("own", "_own"))),
+        # the fused table): launches on the unpacked main paths (the flagship
+        # and the 512^3 render, the flagship ray batch); times, errors and
+        # bounds on the flagship wave.
+        {"name": "render_wave_dense", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": dflag_counts["render_wave_dense"] + dcloud_counts["render_wave_dense"],
+         "launches_sharded": sharded["render_wave_dense"],
+         "max_abs_err": dense["wave_max_abs"], "ms": dense["wave_rep"]["ms"],
+         "plain_ms": dense_wave_plain_ms, "bound_ms": dense["wave_rep"]["bound_ms"],
+         "bound_by": dense["wave_rep"]["bound_by"], "library_ms": None,
+         "lane_iters": dense["lane_iters"][0], "lane_iters_plain": dense["lane_iters"][1]},
+        {"name": "trace_lanes_dense", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": dense["trace_launches"], "max_abs_err": dense["step_max_abs"],
+         "ms": dense["trace_ms"], "plain_ms": dense_plain_ms, "bound_ms": dense["trace_bound"][0],
+         "bound_by": dense["trace_bound"][1], "library_ms": None},
         # The gradient path and the step's ray batch (phase 9): launches in
         # bench.py's three train cells, times and bounds on the full density
         # step.

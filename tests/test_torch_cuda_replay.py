@@ -14,17 +14,15 @@ so there is no corner-row table and no fold on the card:
 
 - on a scattering density-only medium and on an emissive one whose
   temperature grid has its own transform and shape, packed and dense (the
-  padded copies and the grids' own arrays), the kernel's grids equal the
-  plain replay's within relative L2 1e-5 on the lanes where the record
-  agrees (the atomics sum in another order);
+  grids' own arrays), the kernel's grids equal the plain replay's within
+  relative L2 1e-5 on the lanes where the record agrees (the atomics sum in
+  another order);
 - on a density that fills its box, so that base voxels -1 and dim - 1 take
   gradient, the grids agree on the boundary shell too: a corner outside the
   grid is dropped, not wrapped into a neighbouring row;
 - the grids have the medium's shapes, a call is one replay launch and no
   plain run, and a train step on the card enters no prb.fold span.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -56,7 +54,7 @@ FIRE = IntegratorParams(
     infinite_xyz=(0.25, 0.25, 0.5), infinite_multiplier=10.0, distant_xyz=(0.95047, 1.0, 1.08883),
     distant_multiplier=20.0, distant_inv_direction=(0.5, 1.0, 0.0), max_depth=1_000_000, max_iters=512,
 )
-FORMS = ["packed", "padded", "own"]
+FORMS = ["packed", "own"]
 
 
 @pytest.fixture
@@ -89,11 +87,7 @@ def _medium(grids, form, dev):
     leaves = inv.OptimizableGrids(inv.param_from_density(base.density.data),
                                   base.temperature.data if base.temperature is not None else None)
     med = inv.medium_with_params(base, leaves, pack=form == "packed")
-    if form == "own":
-        t = med.temperature
-        med = dataclasses.replace(med, density=dataclasses.replace(med.density),
-                                  temperature=dataclasses.replace(t) if t is not None else None)
-    assert (med.density.padded is not None) == (form == "padded")
+    assert (med.density_rows is None) == (form == "own")
     return med
 
 

@@ -1,6 +1,5 @@
 """The dense arm's arithmetic in the port, on the CPU: world -> index and the
-two forms of array the dense kernels read (csrc/trace_lanes.cu
-dense_trilinear).
+arrays the dense kernels read (csrc/trace_lanes.cu dense_trilinear).
 
 - DenseGrid.world_to_index is a true float32 division, bitwise the JAX
   package's and numpy's, at voxel sizes that are not powers of two and at a
@@ -8,22 +7,22 @@ dense_trilinear).
   transform (integrator.temperature_local) divide by a tensor on the
   points' device, never by a host scalar (torch's CUDA division by a host
   scalar multiplies by the reciprocal, which the kernels do not).
-- A medium without the fused table keeps a copy of each array zero-padded
-  by one voxel (DenseGrid.padded, grids/grid.py pad_voxels) only on a CUDA
-  device whose L2 cache holds the copies (models/medium.py pads_in_l2);
-  a new array (dataclasses.replace, another device) drops the copy; the
-  wrapper passes the copies where every grid a launch reads has one, else
-  the grids' own arrays (megakernel.dense_arrays).
-- The padded fetch's addresses (the base voxel clamped into [-1, N-1] per
-  axis, one base plus two strides, all 8 read) give, bitwise, the port's and
-  the JAX package's gather_voxels corners and sample_trilinear_rows sample
-  at base voxels on every face, edge and corner of an odd-shaped grid, and
-  stay inside the padded array for base voxels outside the grid. The chip's
-  bitwise dense-against-packed films hold the kernel itself.
+- A medium without the fused table, from Medium.from_grids or
+  medium_with_params, hands the kernels its grids' own arrays
+  (megakernel.dense_arrays): no copy, on a CUDA device as on the CPU, and
+  after an in-place update of the leaves (an Adam step) the next rebuilt
+  medium reads the updated values. An array the kernels cannot read (not
+  contiguous float32, or not of its grid's shape) is refused before a
+  launch.
+- The kernels' own-array fetch (each corner tested, read at flat index
+  (cx * Y + cy) * Z + cz only where inside) gives exactly the packed
+  table's corner rows for every base voxel in [-1, N-1]^3, the aligned
+  temperature's 16-wide fused columns too, reads nothing for base voxels
+  outside, and its sum is bitwise the port's and the JAX package's
+  sample_trilinear_rows. The chip's bitwise dense-against-packed films hold
+  the kernel itself.
 """
-import dataclasses
 import itertools
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -103,126 +102,133 @@ def test_world_to_index_divides_by_a_tensor_on_the_points_device(transform):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_pad_voxels_is_numpy_pad():
-    data = np.random.default_rng(3).uniform(0.1, 2.0, (5, 7, 9)).astype(np.float32)
-    got = tgrid.pad_voxels(torch.from_numpy(data))
-    assert got.is_contiguous() and got.dtype == torch.float32
-    np.testing.assert_array_equal(got.numpy(), np.pad(data, 1))
-
-
-@pytest.mark.parametrize("in_l2", [False, True], ids=["cpu", "fits_l2"])
-@pytest.mark.parametrize("build", ["from_grids", "medium_with_params"])
-def test_unpacked_media_carry_the_padded_arrays(build, in_l2, monkeypatch):
-    if in_l2:  # what a CUDA device whose L2 holds the copies answers
-        monkeypatch.setattr(tmed, "pads_in_l2", lambda device, shapes: True)
-    dens, temp = tproc.fire_plume(height=12, radius=3.0)
-    base = tmed.Medium.from_grids(dens, temp, pack=False, device="cpu")
-    if build == "from_grids":
-        med, packed = base, tmed.Medium.from_grids(dens, temp, pack=True, device="cpu")
-    else:
-        grids = tinv.OptimizableGrids(tinv.param_from_density(base.density.data).requires_grad_(True),
-                                      base.temperature.data.clone().requires_grad_(True))
-        med, packed = (tinv.medium_with_params(base, grids, pack=p) for p in (False, True))
-    for grid in (med.density, med.temperature):
-        if not in_l2:
-            assert grid.padded is None
-            continue
-        assert not grid.padded.requires_grad and grid.padded.is_contiguous()
-        np.testing.assert_array_equal(grid.padded.numpy(), np.pad(grid.data.detach().numpy(), 1))
-    assert packed.density.padded is None and packed.temperature.padded is None
-    dd, td = tmk.dense_arrays(med, True)
-    assert (dd is med.density.padded and td is med.temperature.padded) if in_l2 else \
-        (dd is med.density.data and td is med.temperature.data)
-
-
 class _Props:
     L2_cache_size = 50 * 2**20  # an H100's
 
 
-@pytest.mark.parametrize("device,shapes,fits", [
-    ("cuda", [(77, 77, 77)], True),  # the flagship's fog_sphere(30, 6)
-    ("cuda", [(512, 512, 512)], False),  # big_cloud(512)
-    ("cuda", [(200, 200, 200), (200, 200, 200)], False),  # each fits alone, not both
-    ("cpu", [(4, 4, 4)], False),
-])
-def test_padded_copies_only_where_they_fit_in_l2(device, shapes, fits, monkeypatch):
+@pytest.fixture
+def card_like(monkeypatch):
+    """Grids that report a card with an H100's L2, so that an array choice
+    keyed on the device or its cache would show here."""
+    monkeypatch.setattr(tgrid.DenseGrid, "device", property(lambda self: torch.device("cuda", 0)))
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: _Props)
-    assert tmed.pads_in_l2(torch.device(device, 0), shapes) == fits
 
 
-@pytest.mark.parametrize("change", ["replace", "to", "detached"])
-def test_a_new_array_drops_the_padded_copy(change):
-    grid = tgrid.with_padded_copy(tproc.fog_sphere(radius=4.0, falloff=1.0))
-    assert grid.padded is not None and tgrid.with_padded_copy(grid) is grid
-    if change == "replace":
-        assert dataclasses.replace(grid, data=grid.data * 2).padded is None
-    elif change == "to":
-        assert grid.to("cpu").padded is None
-    else:  # the same values, detached (prb's medium for the kernels)
-        assert grid.detached().padded is grid.padded
+def _grids(scene):
+    if scene == "fog_sphere":
+        return (tproc.fog_sphere(radius=4.0, falloff=1.0),)
+    return tproc.fire_plume(height=12, radius=3.0)
 
 
-def test_dense_arrays_take_one_form_for_both_grids():
-    med = _emissive_medium()
-    half = dataclasses.replace(med, density=tgrid.with_padded_copy(med.density))
-    # only the density has a copy: a launch that reads the temperature reads
-    # both grids' own arrays, one that does not reads the density's copy
-    dd, td = tmk.dense_arrays(half, True)
-    assert dd is med.density.data and td is med.temperature.data
-    dd, td = tmk.dense_arrays(half, False)
-    assert dd is half.density.padded and td is None
-    assert [n for _, n, _ in tmk.tap_layout(half, 0)][0] == -(-half.density.padded.numel() // 8)
-    assert [n for _, n, _ in tmk.tap_layout(half, 3)][0] == -(-med.density.data.numel() // 8)
-    # the PADDED_* counters count a launch by the same choice
-    assert not tmk._reads_padded(half, types.SimpleNamespace(dense=True, emission=3))
-    assert tmk._reads_padded(half, types.SimpleNamespace(dense=True, emission=0))
-    assert not tmk._reads_padded(med, types.SimpleNamespace(dense=True, emission=0))
+def _leaves(base, joint):
+    return tinv.OptimizableGrids(tinv.param_from_density(base.density.data).requires_grad_(True),
+                                 base.temperature.data.clone().requires_grad_(True) if joint else None)
 
 
-@pytest.mark.parametrize("bad", ["strided", "float64"])
+@pytest.mark.parametrize("scene", ["fog_sphere", "fire_plume"])
+@pytest.mark.parametrize("build", ["from_grids", "medium_with_params"])
+def test_unpacked_media_hand_the_kernels_their_own_arrays(build, scene, card_like):
+    grids = _grids(scene)
+    base = tmed.Medium.from_grids(*grids, pack=False, device="cpu")
+    if build == "from_grids":
+        med, own = base, [g.data for g in grids]  # the grids' arrays themselves
+    else:  # softplus of the log-density, and the temperature leaf itself
+        leaves = _leaves(base, base.has_temperature)
+        med = tinv.medium_with_params(base, leaves)
+        own = [med.density.data] + ([leaves.temperature] if base.has_temperature else [])
+    arrays = [a for a in tmk.dense_arrays(med, med.has_temperature) if a is not None]
+    assert len(arrays) == len(own) == len(grids)
+    for a, o in zip(arrays, own):
+        assert a.data_ptr() == o.data_ptr() and a.dtype == torch.float32 and a.is_contiguous()
+    assert tuple(arrays[0].shape) == med.density.shape
+
+
+@pytest.mark.parametrize("leaves", ["density", "joint"])
+def test_rebuilt_medium_reads_the_updated_leaves(leaves, card_like):
+    joint = leaves == "joint"
+    base = tmed.Medium.from_grids(*_grids("fire_plume" if joint else "fog_sphere"), pack=False, device="cpu")
+    grids = _leaves(base, joint)
+    opt = tinv.make_optimizer(grids, lr=0.05)
+    before = [a.clone() for a in tmk.dense_arrays(tinv.medium_with_params(base, grids), joint) if a is not None]
+    for p in tinv.grid_leaves(grids):
+        p.grad = torch.ones_like(p)
+    opt.step()  # in place, as a train step's update
+    dd, td = tmk.dense_arrays(tinv.medium_with_params(base, grids), joint)
+    assert torch.equal(dd, tinv.density_from_param(grids.log_density))
+    assert not torch.equal(dd, before[0])
+    if joint:
+        assert td is grids.temperature and not torch.equal(td, before[1])
+
+
+@pytest.mark.parametrize("bad", ["strided", "float64", "wrong_shape"])
 def test_dense_array_the_kernel_cannot_read_is_refused(bad):
-    data = torch.zeros((4, 5, 6), dtype=torch.float64 if bad == "float64" else torch.float32)
+    shape = (4, 5, 6)
+    data = torch.zeros(shape, dtype=torch.float64 if bad == "float64" else torch.float32)
     if bad == "strided":
         data = data.transpose(0, 2)
-    with pytest.raises(ValueError, match="contiguous float32"):
-        tmk._check_dense(data, "the density array", data.device)
-    tmk._check_dense(torch.zeros((4, 5, 6)), "the density array", torch.device("cpu"))
+    if bad == "wrong_shape":  # the grid zero-padded by one voxel
+        data = torch.zeros(tuple(n + 2 for n in shape))
+    with pytest.raises(ValueError, match="has shape" if bad == "wrong_shape" else "contiguous float32"):
+        tmk._check_dense(data, shape, "the density array", data.device)
+    tmk._check_dense(torch.zeros(shape), shape, "the density array", torch.device("cpu"))
 
 
-def test_padded_fetch_gives_the_packed_corners():
-    shape = (5, 7, 9)
-    X, Y, Z = shape
+_OFFS = np.array(list(itertools.product((0, 1), repeat=3)), np.int64)  # corner order, z fastest
+
+
+def _own_corners(data: np.ndarray, i0: np.ndarray):
+    """csrc/trace_lanes.cu dense_trilinear's corners of base voxels i0 [M, 3]
+    in the array `data` [X, Y, Z], emulated: corner c at i0 + (c >> 2,
+    (c >> 1) & 1, c & 1), read at flat index (cx * Y + cy) * Z + cz where it
+    is inside, else 0. Returns the corners [M, 8] and the flat indices read."""
+    X, Y, Z = data.shape
+    c = i0[:, None, :] + _OFFS[None]
+    inside = ((c >= 0) & (c < np.array([X, Y, Z]))).all(-1)
+    read = ((c[..., 0] * Y + c[..., 1]) * Z + c[..., 2])[inside]
+    v = np.zeros(inside.shape, np.float32)
+    v[inside] = data.reshape(-1)[read]
+    return v, read
+
+
+@pytest.mark.parametrize("scene", ["fog_sphere", "fire_plume", "fire_plume_aligned"])
+def test_own_fetch_gives_the_packed_corners(scene):
+    grids = _grids("fire_plume" if scene.startswith("fire") else scene)
+    if scene == "fire_plume_aligned":  # the temperature in the density's frame
+        dens, temp = grids
+        grids = (dens, tgrid.dense_grid_from_array(temp.data, temp.origin_ijk, temp.voxel_size, (0.0, 0.0, 0.0)))
     rng = np.random.default_rng(5)
-    data = rng.uniform(0.1, 2.0, shape).astype(np.float32)
-    padded = tgrid.pad_voxels(torch.from_numpy(data)).numpy().reshape(-1)
-    rows = tgrid.pack_corner_rows(torch.from_numpy(data))
-    jrows = jnp.asarray(rows.numpy())
-    sy, sx = Z + 2, (Y + 2) * (Z + 2)
-    offs = np.array(list(itertools.product((0, 1), repeat=3)), np.int64)
-
-    def addresses(i0):
-        ix, iy, iz = (int(v) for v in i0)
-        base = (np.clip(ix, -1, X - 1) + 1) * sx + (np.clip(iy, -1, Y - 1) + 1) * sy + np.clip(iz, -1, Z - 1) + 1
-        return [int(base + o) for o in (0, 1, sy, sy + 1, sx, sx + 1, sx + sy, sx + sy + 1)]
-
-    # base voxels per axis near both faces (-1, 0 and N-2, N-1: a base voxel
-    # of -1 or N-1 has one corner outside) and in the middle
-    axes = [(-1, 0, n // 2, n - 2, n - 1) for n in shape]
-    for i0 in itertools.product(*axes):
-        p = (np.array(i0, np.float32) + rng.uniform(0.0, 1.0, 3).astype(np.float32)).astype(np.float32)
-        i0 = np.floor(p).astype(np.int64)
-        f = (p - i0.astype(np.float32)).astype(np.float32)
-        addr = addresses(i0)
-        assert all(0 <= a < padded.size for a in addr)
-        v = padded[addr]
-        ijk = i0[None, :] + offs
-        np.testing.assert_array_equal(v, tgrid.gather_voxels(torch.from_numpy(data), torch.from_numpy(ijk)).numpy())
-        w = tgrid.trilinear_weights(torch.from_numpy(f)).numpy()
-        s = np.float32(v[0] * w[0])
-        for c in range(1, 8):
-            s = np.float32(s + v[c] * w[c])
-        assert s == tgrid.sample_trilinear_rows(rows, shape, torch.from_numpy(p)).item()
-        assert s == np.asarray(jgrid.sample_trilinear_rows(jrows, shape, jnp.asarray(p)))
-    # an invalid base voxel's addresses stay inside the padded array
-    for i0 in [(-2, 3, 4), (5, 3, 4), (2, -9, 4), (2, 7, 4), (2, 3, -2), (2, 3, 9), (-7, 40, 100)]:
-        assert all(0 <= a < padded.size for a in addresses(i0))
+    for grid in grids:
+        data = grid.data.numpy()
+        shape = data.shape
+        rows = tgrid.pack_corner_rows(grid.data).numpy()
+        # every base voxel in [-1, N-1]^3, in the table's row order
+        base = np.stack(np.meshgrid(*(np.arange(-1, n) for n in shape), indexing="ij"), -1).reshape(-1, 3)
+        v, read = _own_corners(data, base)
+        assert ((read >= 0) & (read < data.size)).all()
+        np.testing.assert_array_equal(v, rows)
+        # base voxels outside have no corner inside: nothing read, a 0 sum
+        X, Y, Z = shape
+        outside = np.array([(-2, 3, 4), (X, 3, 4), (2, -9, 4), (2, Y, 4), (2, 3, -2), (2, 3, Z), (-7, 40, 100)])
+        v, read = _own_corners(data, outside)
+        assert read.size == 0 and not v.any()
+        # the kernel's sum, bitwise the packed sample, at base voxels near
+        # both faces (-1, 0 and N-2, N-1) and in the middle
+        jrows = jnp.asarray(rows)
+        for i0 in itertools.product(*[(-1, 0, n // 2, n - 2, n - 1) for n in shape]):
+            p = (np.array(i0, np.float32) + rng.uniform(0.0, 1.0, 3).astype(np.float32)).astype(np.float32)
+            i0 = np.floor(p).astype(np.int64)
+            w = tgrid.trilinear_weights(torch.from_numpy((p - i0.astype(np.float32)).astype(np.float32))).numpy()
+            v = _own_corners(data, i0[None])[0][0]
+            s = np.float32(v[0] * w[0])
+            for c in range(1, 8):
+                s = np.float32(s + v[c] * w[c])
+            assert s == tgrid.sample_trilinear_rows(torch.from_numpy(rows), shape, torch.from_numpy(p)).item()
+            assert s == np.asarray(jgrid.sample_trilinear_rows(jrows, shape, jnp.asarray(p)))
+    if scene == "fire_plume_aligned":
+        # the emission arm's own-array reads of an aligned temperature (here
+        # the density's frame, offset 0) are the 16-wide fused rows' columns
+        # 8..15
+        dens, temp = grids
+        fused = tmed.Medium.from_grids(dens, temp, pack=True, device="cpu").density_rows.numpy()
+        assert fused.shape[1] == 16 and temp.shape == dens.shape and temp.origin_ijk == dens.origin_ijk
+        np.testing.assert_array_equal(_own_corners(temp.data.numpy(), base)[0], fused[:base.shape[0], 8:])

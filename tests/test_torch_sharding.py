@@ -170,20 +170,29 @@ def test_mesh_construction():
     assert shard.tree_sum([1, 2, 3, 4, 5]) == ((1 + 2) + (3 + 4)) + 5
 
 
-def test_to_device_copies_once_and_keeps_the_form():
+@pytest.mark.parametrize("form", ["packed", "unpacked"])
+def test_to_device_copies_once_and_keeps_the_form(form):
     """to_device hands back the object on its own device, and elsewhere one
     copy while the object lives (so kernel constants are found again): a
-    packed medium keeps its tables, an unpacked one stays without them
-    (padded copies only where a CUDA device's L2 takes them), the camera its
-    tensors."""
+    packed medium keeps its tables, an unpacked one stays without them, its
+    grids copied as they are and handed to the kernels as they are, the
+    camera its tensors."""
     _, (med, cam, _), _, _ = scene()
-    assert shard.to_device(med, "cpu") is med and shard.to_device(None, "meta") is None
-    for m in (med, tint_unpacked(med)):
-        on = shard.to_device(m, "meta")
-        assert on is shard.to_device(m, "meta") and on.device.type == "meta"
-        assert (on.density_rows is None) == (m.density_rows is None)
-        assert on.density.padded is None and on.majorants.rows.device.type == "meta"
-        assert on.density.shape == m.density.shape and on.density.origin_ijk == m.density.origin_ijk
+    m = med if form == "packed" else tint_unpacked(med)
+    assert shard.to_device(m, "cpu") is m and shard.to_device(None, "meta") is None
+    on = shard.to_device(m, "meta")
+    assert on is shard.to_device(m, "meta") and on.device.type == "meta"
+    assert (on.density_rows is None) == (form == "unpacked")
+    assert on.majorants.rows.device.type == "meta"
+    assert on.density.shape == m.density.shape and on.density.origin_ijk == m.density.origin_ijk
+    if form == "unpacked":
+        # a CPU device of another index: a copy that holds the values
+        moved = shard.to_device(m, "cpu:1")
+        assert moved is not m and moved.density.data.data_ptr() != m.density.data.data_ptr()
+        assert torch.equal(moved.density.data, m.density.data)
+        assert torch.equal(moved.majorants.rows, m.majorants.rows) and moved.density_rows is None
+        dd, td = tmk.dense_arrays(moved, False)
+        assert dd is moved.density.data and td is None
     c = shard.to_device(cam, "meta")
     assert c.device.type == "meta" and c.imaging_ratio == cam.imaging_ratio
     with pytest.raises(TypeError):

@@ -295,21 +295,20 @@ def test_tap_layout_counts_sectors_pairs_and_rows(name):
 def test_dense_arrays_of_2_to_31_voxels_are_refused():
     big = torch.empty((2048, 1024, 1024), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="fewer than 2\\^31 voxels"):
-        tmk._check_dense(big, "the density array", big.device)
+        tmk._check_dense(big, big.shape, "the density array", big.device)
     ok = torch.empty((2047, 1024, 1024), dtype=torch.float32, device="meta")
-    tmk._check_dense(ok, "the density array", ok.device)
+    tmk._check_dense(ok, ok.shape, "the density array", ok.device)
     with pytest.raises(ValueError, match="contiguous float32"):
-        tmk._check_dense(ok.to(torch.float16), "the density array", ok.device)
+        tmk._check_dense(ok.to(torch.float16), ok.shape, "the density array", ok.device)
 
 
 def test_kernel_source_has_the_dense_instantiations():
     with open(tmk.SOURCE) as f:
         source = f.read()
-    # kDense is a form: packed, the grid's own arrays, or their padded copies
-    assert "enum DenseForm { kPacked = 0, kDenseOwn = 1, kDensePadded = 2 };" in source
-    assert "template <bool kTap, int kDense>" in source
-    for form in ("kPacked", "kDenseOwn", "kDensePadded"):
-        assert f"pick_kernel<{form}>(kind, tap)" in source
+    # kDense: 0 reads the fused table, 1 the grids' own arrays; no other form
+    assert "template <bool kTap, int kDense>" in source and "DenseForm" not in source
+    assert "return dense ? pick_kernel<1>(kind, tap) : pick_kernel<0>(kind, tap);" in source
+    assert "static int resident[MAX_DEVICES][kNumKinds][2][2];" in source
     assert "render_wave_kernel<true, kDense, false>" in source and "render_wave_kernel<false, kDense, false>" in source
     # and the counting wave (return_lane_iters), which has no measuring twin
     assert "render_wave_kernel<false, kDense, true>" in source and "render_wave_kernel<true, kDense, true>" not in source
@@ -318,15 +317,17 @@ def test_kernel_source_has_the_dense_instantiations():
     # each with its measuring twin
     assert "trace_lanes_kernel<false, kDense, true>" in source and "trace_lanes_kernel<true, kDense, true>" in source
     assert "replay_lanes_kernel<false, kDense>" in source and "replay_lanes_kernel<true, kDense>" in source
-    # the dense arm and its fetch are chosen at compile time, not by a
-    # branch in the step, for density and temperature alike
-    assert "if constexpr (kDense != kPacked)" in source and "if constexpr (kDense == kDensePadded)" in source
-    assert "dense_trilinear<kTap, kDense>(a.dens" in source and "dense_trilinear<kTap, kDense>(a.tdata" in source
-    # the launch tells the forms apart by the arrays' lengths
-    assert "a.n_dens == own ? kDenseOwn : a.n_dens == padded ? kDensePadded : -1" in source
-    # both dot8 spell out one fusion order, so dense and packed sum alike
+    # the dense arm is chosen at compile time, not by a branch in the step,
+    # for density and temperature alike
+    assert source.count("if constexpr (kDense != 0)") == 2
+    assert "dense_trilinear<kTap>(a.dens" in source and "dense_trilinear<kTap>(a.tdata" in source
+    # the launch refuses a dense or temperature array that is not its grid's
+    # voxel count, the only length the kernels index by
+    assert "if (a.n_dens != (long long)ip[I_X] * ip[I_Y] * ip[I_Z]) return (int)cudaErrorInvalidValue;" in source
+    assert "ip[I_EMISSION] == 3 && a.n_tdata != (long long)ip[I_TX] * ip[I_TY] * ip[I_TZ]" in source
+    # dot8 spells out the fusion order that dense_trilinear's sum compiles to
     assert source.count("__fmaf_rn(a.x, w[0], __fmul_rn(a.y, w[1]))") == 1
-    assert source.count("__fmaf_rn(v[0], w[0], __fmul_rn(v[1], w[1]))") == 1
+    assert "float s = v[0] * w[0];" in source
     # the C interface carries the three new arrays to all five launches
     # (and through set_tables and launch_wave)
     assert source.count("const float* dens, int n_dens, const float* maj, int n_maj") == 7

@@ -26,12 +26,9 @@
 // emissive collision the 8 corners of the dense temperature array through
 // its own transform. A lane reads only what its event needs. The corners and
 // weights are those of the packed row, summed in the same order, so dense
-// and packed media give the same bits. The corner fetch has two forms,
-// chosen by kDense: kDenseOwn reads the grid's own array, each corner tested
-// and read only if inside; kDensePadded reads a copy zero-padded by one
-// voxel, 8 loads from one base with no per-corner test. The medium decides
-// (models/medium.py: the padded copy where it fits in L2), the launch sees
-// which array it was given by its length.
+// and packed media give the same bits. The arrays are the grids' own
+// ([X, Y, Z], no copy): each corner is tested and read only if inside, and
+// the launch refuses an array of another length.
 //
 // The step is written once (lane_step) and follows render/integrator.py
 // make_step operation by operation. The compiler contracts multiply-adds to
@@ -209,9 +206,8 @@ struct Args {
   int n_trows;
   const float* bb_pairs;
   // Dense instantiations (dens not null; rows and trows are then unused):
-  // the density array, [X, Y, Z] (kDenseOwn) or zero-padded by one voxel
-  // [X + 2, Y + 2, Z + 2] (kDensePadded), the majorant pairs [n_maj, 2]
-  // and, for an emissive medium, the temperature array in the same form.
+  // the density array [X, Y, Z], the majorant pairs [n_maj, 2] and, for an
+  // emissive medium, the temperature array [TX, TY, TZ].
   const float* dens;
   int n_dens;
   const float* maj;
@@ -334,8 +330,8 @@ __device__ __forceinline__ void tri_weights(float fx, float fy, float fz, float*
 // multiply-adds fused as nvcc fuses `v0 * w0 + v1 * w1 + ...` (the first
 // product into the first sum, each later one into the sum so far), written
 // out with intrinsics: the compiler's choice can differ from one call site
-// to another, and the packed row's sample (dot8 of two float4) and the
-// dense corners' (dot8 of an array) must give the same bits.
+// to another, and the packed row's sample must give the bits of the dense
+// corners' (dense_trilinear, whose sum nvcc fuses in this order).
 __device__ __forceinline__ float dot8(float4 a, float4 b, const float* w) {
   float s = __fmaf_rn(a.x, w[0], __fmul_rn(a.y, w[1]));
   s = __fmaf_rn(a.z, w[2], s);
@@ -347,79 +343,44 @@ __device__ __forceinline__ float dot8(float4 a, float4 b, const float* w) {
   return s;
 }
 
-__device__ __forceinline__ float dot8(const float* v, const float* w) {
-  float s = __fmaf_rn(v[0], w[0], __fmul_rn(v[1], w[1]));
-#pragma unroll
-  for (int c = 2; c < 8; ++c) s = __fmaf_rn(v[c], w[c], s);
-  return s;
-}
-
 // 32-byte sectors (8 floats) of an array of n_floats.
 __device__ __forceinline__ size_t sectors(int n_floats) { return ((size_t)n_floats + 7) >> 3; }
 
-// The dense instantiations' two forms (kDense of traverse and the kernels):
-// the grid's own array, or its copy zero-padded by one voxel.
-enum DenseForm { kPacked = 0, kDenseOwn = 1, kDensePadded = 2 };
-
 // Trilinear sample of a dense [X, Y, Z] grid at base voxel (ix, iy, iz) with
-// weights w, bitwise the packed row's (valid: the packed row's one test,
-// every axis in [-1, N-1]): the 8 corners in corner order, each 0 outside
-// the grid (grids/grid.py gather_voxels), summed as dot8 sums a packed row.
-//
-// kDenseOwn: `data` is the grid's array; each corner is tested and read only
-// if inside. kDensePadded: `data` is the array zero-padded by one voxel on
-// every side ([X + 2, Y + 2, Z + 2], grids/grid.py pad_voxels): every
-// corner of a valid base voxel lies inside it and the padding holds the
-// zeros, so one base (the base voxel clamped into [-1, N-1], so that an
-// invalid lane's addresses lie inside too) and two strides give the 8
-// addresses, and the 8 loads are issued unconditionally, with no test or
-// select. The padded form is 2-5% faster on grids that sit in L2 and 1-2%
-// slower on a 512^3 grid in HBM (PERF.md, Findings), hence both. kTap: mark
-// the sector of each corner read at tap + its index.
-template <bool kTap, int kDense>
+// weights w, bitwise the packed row's: the 8 corners in corner order, each 0
+// outside the grid (grids/grid.py gather_voxels), summed as dot8 sums a
+// packed row. `data` is the grid's own array; each corner is tested and read
+// only if inside. kTap: mark the sector of each corner read at tap + its
+// index.
+template <bool kTap>
 __device__ __forceinline__ float dense_trilinear(const float* data, int X, int Y, int Z,
-                                                 int ix, int iy, int iz, bool valid, const float* w,
+                                                 int ix, int iy, int iz, const float* w,
                                                  unsigned char* tap) {
   float v[8];
-  if constexpr (kDense == kDensePadded) {
-    const int sy = Z + 2, sx = (Y + 2) * (Z + 2);
-    const int base = (clampi(ix, -1, X - 1) + 1) * sx + (clampi(iy, -1, Y - 1) + 1) * sy + clampi(iz, -1, Z - 1) + 1;
-    const float* p = data + base;
-    v[0] = __ldg(p); v[1] = __ldg(p + 1); v[2] = __ldg(p + sy); v[3] = __ldg(p + sy + 1);
-    v[4] = __ldg(p + sx); v[5] = __ldg(p + sx + 1); v[6] = __ldg(p + sx + sy); v[7] = __ldg(p + sx + sy + 1);
-    if (kTap) {
-      const int off[8] = {0, 1, sy, sy + 1, sx, sx + 1, sx + sy, sx + sy + 1};
+  // An invalid base voxel has no corner inside: the sum is 0 as well. The
+  // sum is left to nvcc, which fuses it here as dot8 spells it out (the
+  // bitwise gates against the packed kernels hold this); spelled out, it
+  // took 1-2 more registers (PERF.md, Findings).
 #pragma unroll
-      for (int c = 0; c < 8; ++c) tap[(base + off[c]) >> 3] = 1;
+  for (int c = 0; c < 8; ++c) {
+    const int cx = ix + (c >> 2), cy = iy + ((c >> 1) & 1), cz = iz + (c & 1);
+    const bool inside = cx >= 0 && cx < X && cy >= 0 && cy < Y && cz >= 0 && cz < Z;
+    v[c] = 0.f;
+    if (inside) {
+      const int flat = (cx * Y + cy) * Z + cz;
+      v[c] = __ldg(data + flat);
+      if (kTap) tap[flat >> 3] = 1;
     }
-    return valid ? dot8(v, w) : 0.f;
-  } else {
-    // An invalid base voxel has no corner inside: the sum is 0 as well. The
-    // sum is left to nvcc, which fuses it here as dot8 spells it out (the
-    // bitwise gates against the packed kernels hold this): so this form
-    // compiles to PR 5's dense kernels, registers included (spelled out it
-    // took 1-2 more, PERF.md, Findings).
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int cx = ix + (c >> 2), cy = iy + ((c >> 1) & 1), cz = iz + (c & 1);
-      const bool inside = cx >= 0 && cx < X && cy >= 0 && cy < Y && cz >= 0 && cz < Z;
-      v[c] = 0.f;
-      if (inside) {
-        const int flat = (cx * Y + cy) * Z + cz;
-        v[c] = __ldg(data + flat);
-        if (kTap) tap[flat >> 3] = 1;
-      }
-    }
-    float s = v[0] * w[0];
-    s = s + v[1] * w[1];
-    s = s + v[2] * w[2];
-    s = s + v[3] * w[3];
-    s = s + v[4] * w[4];
-    s = s + v[5] * w[5];
-    s = s + v[6] * w[6];
-    s = s + v[7] * w[7];
-    return s;
   }
+  float s = v[0] * w[0];
+  s = s + v[1] * w[1];
+  s = s + v[2] * w[2];
+  s = s + v[3] * w[3];
+  s = s + v[4] * w[4];
+  s = s + v[5] * w[5];
+  s = s + v[6] * w[6];
+  s = s + v[7] * w[7];
+  return s;
 }
 
 // A density-index-space point in the temperature grid's local coordinates,
@@ -458,8 +419,9 @@ struct Trav {
 };
 
 // kTap: also mark in a.tap what the lane reads (see Args), so a measurement
-// can count the distinct bytes a run needs. kDense: a DenseForm, kPacked for
-// the fused table, else the form of the dense arrays.
+// can count the distinct bytes a run needs. kDense: 0 reads the fused table,
+// 1 the grids' dense arrays (an int, not a bool, so that the kernels keep
+// the names <., 0|1, .> that register reports and PERF.md use).
 template <bool kTap, int kDense>
 __device__ __forceinline__ void traverse(const Lane& L, const Args& a, Trav& tr) {
   const float* fp = a.p.f;
@@ -513,7 +475,7 @@ __device__ __forceinline__ void traverse(const Lane& L, const Args& a, Trav& tr)
   float* w = tr.w;
   float rho, bmaj, smaj;
   tr.rp = nullptr;
-  if constexpr (kDense != kPacked) {
+  if constexpr (kDense != 0) {
     // The packed row's validity test and its corners, zero-padded as a
     // packed row's are: the same values. A crossing lane reads no corner and
     // a colliding lane no majorant: these loads are the longest link of the
@@ -521,7 +483,7 @@ __device__ __forceinline__ void traverse(const Lane& L, const Args& a, Trav& tr)
     tri_weights(fx, fy, fz, w);
     rho = 0.f; bmaj = 0.f; smaj = 0.f;
     if (collide) {
-      rho = dense_trilinear<kTap, kDense>(a.dens, X, Y, Z, ix, iy, iz, valid, w, a.tap);
+      rho = dense_trilinear<kTap>(a.dens, X, Y, Z, ix, iy, iz, w, a.tap);
     } else if (fetch && b_valid) {
       const float2 m = __ldg(reinterpret_cast<const float2*>(a.maj) + b_flat);
       bmaj = m.x; smaj = m.y;
@@ -578,11 +540,11 @@ __device__ __forceinline__ float sample_temperature(const Args& a, const Trav& t
     const int jx = (int)floorf(tlx), jy = (int)floorf(tly), jz = (int)floorf(tlz);
     float tw[8];
     tri_weights(tlx - (float)jx, tly - (float)jy, tlz - (float)jz, tw);
-    const bool tvalid = jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1;
-    if constexpr (kDense != kPacked) {
-      temp_adim = dense_trilinear<kTap, kDense>(a.tdata, TX, TY, TZ, jx, jy, jz, tvalid, tw,
-                                                kTap ? a.tap + sectors(a.n_dens) + a.n_maj : nullptr);
+    if constexpr (kDense != 0) {
+      temp_adim = dense_trilinear<kTap>(a.tdata, TX, TY, TZ, jx, jy, jz, tw,
+                                        kTap ? a.tap + sectors(a.n_dens) + a.n_maj : nullptr);
     } else {
+      const bool tvalid = jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1;
       const int tbase = clampi(corner_row(jx, jy, jz, TX, TY, TZ), 0, a.n_trows - 1);
       const float4* tp = reinterpret_cast<const float4*>(a.trows + (size_t)tbase * 8);
       if (kTap) a.tap[(size_t)a.n_rows + tbase] = 1;
@@ -1399,21 +1361,17 @@ Kernel pick_kernel(int kind, bool tap) {
   }
 }
 
-// dense: a DenseForm.
+// dense: 1 for the dense instantiations, 0 for the fused table's.
 Kernel pick_kernel(int kind, bool tap, int dense) {
-  switch (dense) {
-    case kDenseOwn: return pick_kernel<kDenseOwn>(kind, tap);
-    case kDensePadded: return pick_kernel<kDensePadded>(kind, tap);
-    default: return pick_kernel<kPacked>(kind, tap);
-  }
+  return dense ? pick_kernel<1>(kind, tap) : pick_kernel<0>(kind, tap);
 }
 
 // Blocks the device holds resident for `kernel` (resident blocks per SM
 // times the SM count, both asked of the runtime and kept per device).
 cudaError_t resident_blocks(int kind, bool tap, int dense, int device, int* blocks) {
-  static int resident[MAX_DEVICES][kNumKinds][2][3];
-  if (device < 0 || device >= MAX_DEVICES || kind < 0 || kind >= kNumKinds || dense < kPacked ||
-      dense > kDensePadded || pick_kernel(kind, tap, dense) == nullptr)
+  static int resident[MAX_DEVICES][kNumKinds][2][2];
+  if (device < 0 || device >= MAX_DEVICES || kind < 0 || kind >= kNumKinds || dense < 0 || dense > 1 ||
+      pick_kernel(kind, tap, dense) == nullptr)
     return cudaErrorInvalidValue;
   int& kept = resident[device][kind][tap][dense];
   if (kept == 0) {
@@ -1437,20 +1395,14 @@ int launch(int kind, int device, void* stream, const Args& a) {
   if (err != cudaSuccess) return (int)err;
   if (a.n <= 0) return 0;
   const bool tap = a.tap != nullptr;
-  int dense = kPacked;
-  if (a.dens != nullptr) {
-    // The array's length says its form: the grid's own, or padded by one
-    // voxel; the temperature array, when read, takes the same form.
+  const int dense = a.dens != nullptr;
+  if (dense) {
+    // The kernels index the grids' own arrays by the grids' shapes: an array
+    // of another length is refused, never read out of its bounds.
     const int* ip = a.p.i;
-    const long long own = (long long)ip[I_X] * ip[I_Y] * ip[I_Z];
-    const long long padded = (long long)(ip[I_X] + 2) * (ip[I_Y] + 2) * (ip[I_Z] + 2);
-    dense = a.n_dens == own ? kDenseOwn : a.n_dens == padded ? kDensePadded : -1;
-    if (ip[I_EMISSION] == 3) {
-      const long long t_own = (long long)ip[I_TX] * ip[I_TY] * ip[I_TZ];
-      const long long t_padded = (long long)(ip[I_TX] + 2) * (ip[I_TY] + 2) * (ip[I_TZ] + 2);
-      if (a.n_tdata != (dense == kDensePadded ? t_padded : t_own)) dense = -1;
-    }
-    if (dense < 0) return (int)cudaErrorInvalidValue;
+    if (a.n_dens != (long long)ip[I_X] * ip[I_Y] * ip[I_Z]) return (int)cudaErrorInvalidValue;
+    if (ip[I_EMISSION] == 3 && a.n_tdata != (long long)ip[I_TX] * ip[I_TY] * ip[I_TZ])
+      return (int)cudaErrorInvalidValue;
   }
   int blocks = 0;
   err = resident_blocks(kind, tap, dense, device, &blocks);
@@ -1504,11 +1456,10 @@ int vpt_num_iparams() { return NUM_IPARAMS; }
 // layout; they travel in the kernel's arguments. rows: [n_rows, row_w]
 // float32 (row_w 8 or 16), trows: [n_trows, 8] or null, bb_pairs:
 // [npairs, 6] or null. A medium without the fused table passes rows null
-// and instead dens: [n_dens] float32 (the density array, flat: the grid's
-// own, X * Y * Z floats, or zero-padded by one voxel on every side,
-// (X + 2) * (Y + 2) * (Z + 2) floats), maj: [n_maj, 2] (brick, superbrick) majorant
-// pairs, tdata: [n_tdata] (the temperature array in the same form, flat)
-// or null.
+// and instead dens: [n_dens] float32 (the grid's own density array, flat,
+// n_dens = X * Y * Z), maj: [n_maj, 2] (brick, superbrick) majorant pairs,
+// tdata: [n_tdata] (the temperature grid's own array, flat, n_tdata = TX *
+// TY * TZ) or null. An array of another length is refused.
 // scratch: SCRATCH_INTS (6) ints on the device, 8-byte aligned, zeroed here on the stream. tap: null, or given for the measuring instantiation, and then
 // stat may be given too (see Args).
 
@@ -1645,8 +1596,8 @@ int vpt_loss_rays(int device, void* stream, const void* raster, int raster_i64, 
 }
 
 // Resident blocks of the production kernels on `device` (see
-// resident_blocks) of the form `dense` (a DenseForm: packed, the grid's own
-// array or the padded one): render_wave_kernel, trace_lanes_kernel,
+// resident_blocks), dense (1) or reading the fused table (0):
+// render_wave_kernel, trace_lanes_kernel,
 // THREADS, the device's SM count, then the record instantiation and
 // replay_lanes_kernel (after the first four, so that a caller of the
 // six-argument form of earlier sources reads the same first four).

@@ -26,7 +26,7 @@ import torch.distributed as dist
 from ..grids.grid import pack_corner_rows
 from ..grids.majorant import build_majorants
 from ..models.camera import Camera
-from ..models.medium import Medium, pack_fused_rows, padded_copies
+from ..models.medium import Medium, pack_fused_rows
 from ..parallel.shard import Mesh, to_device, tree_sum
 from ..render.integrator import IntegratorParams, trace_rays_diff
 from ..render.megakernel import loss_rays
@@ -119,17 +119,16 @@ def medium_with_params(base: Medium, grids: OptimizableGrids, bloat: float = 0.1
     Majorants come from the detached density with `bloat` slack (gradient
     rendering needs a null-collision probability > 0 everywhere;
     grids/majorant.build_majorants). pack=True builds the fused rows (8
-    wide) and the temperature corner rows too, pack=False the grids'
-    padded copies where models/medium.py padded_copies makes them, from
-    detached data: the replay gradient never differentiates through them.
+    wide) and the temperature corner rows too, from detached data: the
+    replay gradient never differentiates through them. pack=False makes no
+    copy: the dense kernels read the leaves' arrays themselves (the
+    temperature leaf, and softplus of the log-density).
     """
     density = dataclasses.replace(base.density, data=density_from_param(grids.log_density))
     temperature = base.temperature
     if grids.temperature is not None and base.temperature is not None:
         temperature = dataclasses.replace(base.temperature, data=grids.temperature)
     majorants = build_majorants(density, bloat=bloat)
-    if not pack:
-        density, temperature = padded_copies(density, temperature)
     return Medium(
         density=density,
         majorants=majorants,
@@ -241,14 +240,21 @@ def make_train_step(
             sq, n = loss_fn(grids, raster, pids, target_px, seed_wave)
             with span("train.backward"):
                 sq.backward()
-            with span("train.optimizer"):
-                for p in grid_leaves(grids):
-                    # optax updates a leaf with no gradient as one with a zero gradient
-                    p.grad = torch.zeros_like(p) if p.grad is None else p.grad.div_(n)
-                opt.step()
+            leaves = grid_leaves(grids)
+            _update(opt, leaves, [p.grad for p in leaves], n)
             return grids, opt, sq.detach() / n
 
     return train_step
+
+
+def _update(opt: torch.optim.Adam, leaves, grads, n: float):
+    """The step's update: each leaf's gradient `grads` (None: it has none)
+    over the loss's count n, then opt.step()."""
+    with span("train.optimizer"):
+        for p, g in zip(leaves, grads):
+            # optax updates a leaf with no gradient as one with a zero gradient
+            p.grad = torch.zeros_like(p) if g is None else g.div_(n)
+        opt.step()
 
 
 def _sharded_train_step(mesh: Mesh, base_medium: Medium, camera: Camera, bb_table, make_loss):
@@ -281,18 +287,16 @@ def _sharded_train_step(mesh: Mesh, base_medium: Medium, camera: Camera, bb_tabl
                 with span("train.backward"):
                     g = torch.autograd.grad(sq, leaves, allow_unused=True)
                 sqs.append(sq.detach().to(leaves[0].device))
-                # optax updates a leaf with no gradient as one with a zero gradient
-                grads.append([torch.zeros_like(p) if gi is None else gi for gi, p in zip(g, leaves)])
+                grads.append(g)
             sq = tree_sum(sqs)
-            total = [tree_sum(col) for col in zip(*grads)]
+            # A leaf has no gradient in every cell or in none: the graph is one.
+            total = [None if col[0] is None else tree_sum(col) for col in zip(*grads)]
             if mesh.spans_processes:
                 for t in (sq, *total):
-                    dist.all_reduce(t)
+                    if t is not None:
+                        dist.all_reduce(t)
             n = float(per * 3 * mesh.size)
-            with span("train.optimizer"):
-                for p, g in zip(leaves, total):
-                    p.grad = g.div_(n)
-                opt.step()
+            _update(opt, leaves, total, n)
             return grids, opt, sq / n
 
     return train_step

@@ -13,7 +13,7 @@ one row read serves one trilinear sample.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -27,10 +27,6 @@ class DenseGrid:
     origin_ijk: Tuple[int, int, int]
     voxel_size: float
     world_offset: Tuple[float, float, float]
-    # `data` zero-padded by one voxel (pad_voxels), or None: a copy that only
-    # the dense kernels' padded fetch reads, set by with_padded_copy. Not an
-    # argument: dataclasses.replace (a new array, another device) drops it.
-    padded: Optional[torch.Tensor] = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     @property
     def shape(self) -> Tuple[int, int, int]:
@@ -44,11 +40,8 @@ class DenseGrid:
         return dataclasses.replace(self, data=self.data.to(device))
 
     def detached(self) -> "DenseGrid":
-        """The grid with its array detached from autograd (contiguous), its
-        padded copy kept: the same values."""
-        out = dataclasses.replace(self, data=self.data.detach().contiguous())
-        object.__setattr__(out, "padded", self.padded)
-        return out
+        """The grid with its array detached from autograd (contiguous)."""
+        return dataclasses.replace(self, data=self.data.detach().contiguous())
 
     def world_to_index(self, p_world: torch.Tensor) -> torch.Tensor:
         """(p_world - world_offset) / voxel_size, a true float32 division as
@@ -168,25 +161,6 @@ def _pack_columns(data: torch.Tensor, padded: bool, width: int, extra_rows: int 
     view = out[:n].view(X + 1, Y + 1, Z + 1, width)
     for c, (dx, dy, dz) in enumerate(_CORNER_OFFSETS):
         view[..., col0 + c] = p[dx:dx + X + 1, dy:dy + Y + 1, dz:dz + Z + 1]
-    return out
-
-
-def pad_voxels(data: torch.Tensor) -> torch.Tensor:
-    """The dense array zero-padded by one voxel on every side, [X+2, Y+2,
-    Z+2], contiguous: what the dense kernels' padded fetch reads
-    (csrc/trace_lanes.cu dense_trilinear). Every corner of a base voxel in
-    [-1, dim-1] lies inside it, so a trilinear sample needs no per-corner
-    test; the padding is the background 0 of gather_voxels."""
-    return torch.nn.functional.pad(data, (1, 1, 1, 1, 1, 1)).contiguous()
-
-
-def with_padded_copy(grid: DenseGrid) -> DenseGrid:
-    """`grid` carrying its array zero-padded by one voxel (DenseGrid.padded),
-    made from the detached array: no gradient flows through the copy."""
-    if grid.padded is not None:
-        return grid
-    out = dataclasses.replace(grid)
-    object.__setattr__(out, "padded", pad_voxels(grid.data.detach()))
     return out
 
 

@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..grids.grid import DenseGrid, _pack_columns, dense_grid_from_array, pack_corner_rows, with_padded_copy
+from ..grids.grid import DenseGrid, _pack_columns, dense_grid_from_array, pack_corner_rows
 from ..grids.majorant import MajorantPyramid, build_majorants
 from ..utils.device import DeviceLike, resolve_device, same_device
 from ..utils.spans import span
@@ -104,10 +104,8 @@ class Medium:
         return self.density.device
 
     def to(self, device) -> "Medium":
-        """The medium on `device` (itself when it is there already): every
-        table copied, and for a medium without the fused table the grids'
-        padded copies made again where padded_copies makes them on that
-        device, as Medium.from_grids there would."""
+        """The medium on `device` (itself when it is there already): the
+        grids and every table copied."""
         dev = torch.device(device)
         if same_device(self.device, dev):
             return self
@@ -115,16 +113,12 @@ class Medium:
         def move(t):
             return None if t is None else t.to(dev)
 
-        density = self.density.to(dev)
-        temperature = self.temperature.to(dev) if self.temperature is not None else None
-        if self.density_rows is None:
-            density, temperature = padded_copies(density, temperature)
         m = self.majorants
         return Medium(
-            density=density,
+            density=self.density.to(dev),
             majorants=dataclasses.replace(m, brick_maj=move(m.brick_maj), super_maj=move(m.super_maj),
                                           rows=move(m.rows)),
-            temperature=temperature,
+            temperature=self.temperature.to(dev) if self.temperature is not None else None,
             density_rows=move(self.density_rows),
             temperature_rows=move(self.temperature_rows),
         )
@@ -139,8 +133,7 @@ class Medium:
         device: DeviceLike = None,
     ) -> "Medium":
         """Build a medium on `device` (CUDA unless device="cpu"), computing
-        majorants and, with pack=True, the fused row table, else, where
-        padded_copies says so, the grids' padded copies."""
+        majorants and, with pack=True, the fused row table."""
         with span("medium.build"):
             dev = resolve_device(device)
             density = density.to(dev)
@@ -159,8 +152,6 @@ class Medium:
                 if (pack and temperature is not None and t_on_d is None)
                 else None
             )
-            if not pack:
-                density, temperature = padded_copies(density, temperature)
             return Medium(
                 density=density,
                 majorants=majorants,
@@ -168,29 +159,6 @@ class Medium:
                 density_rows=rows,
                 temperature_rows=trows,
             )
-
-
-def padded_copies(density: DenseGrid, temperature: Optional[DenseGrid]):
-    """(density, temperature) of a medium without the fused table, each
-    carrying its array zero-padded by one voxel (DenseGrid.padded) where the
-    copies pay: on a CUDA device whose L2 cache holds them all. There the
-    dense kernels read the copies with a fetch that has no per-corner test,
-    2-5% faster; an array that does not fit in L2 is read from its own
-    array, the faster fetch from HBM (PERF.md, Findings), and keeps no
-    second copy. Elsewhere the grids are returned as they are."""
-    grids = [g for g in (density, temperature) if g is not None]
-    if not pads_in_l2(density.device, [g.shape for g in grids]):
-        return density, temperature
-    return tuple(None if g is None else with_padded_copy(g) for g in (density, temperature))
-
-
-def pads_in_l2(device: torch.device, shapes) -> bool:
-    """Whether arrays of these [X, Y, Z] shapes, each zero-padded by one
-    voxel, fit in the L2 cache of `device` together (False off CUDA)."""
-    if device.type != "cuda":
-        return False
-    nbytes = sum(4 * (x + 2) * (y + 2) * (z + 2) for x, y, z in shapes)
-    return nbytes <= torch.cuda.get_device_properties(device).L2_cache_size
 
 
 def _grid_from_numpy(g) -> DenseGrid:

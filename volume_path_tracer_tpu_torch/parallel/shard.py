@@ -142,8 +142,8 @@ def to_device(obj, device):
     """`obj` (a Medium, a Camera, a tensor or None) on `device`: itself where
     it lives there, else a copy made at first use and kept while `obj`
     lives, so that every wave of a cell meets the same copy (and the kernel
-    constants kept for it). A Medium keeps its form: packed tables, or the
-    grids with padded copies where that device takes them (Medium.to)."""
+    constants kept for it). A Medium keeps its form (Medium.to): packed
+    tables, or the grids alone."""
     if obj is None:
         return None
     if not isinstance(obj, (Medium, Camera, torch.Tensor)):

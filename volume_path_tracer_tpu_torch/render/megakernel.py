@@ -7,10 +7,8 @@ _pallas_step_call from trace_rays_fused) together with its XLA prestep
 one warp loop (persistent warps that refill retired lanes from a queue) and
 two kernels around them; its notes say what bounds them on the card. Each
 kernel has a second instantiation for a medium without the fused table
-(Medium.from_grids(pack=False)): the same step, reading the density array,
-the majorant pairs and the temperature array, each array in one of two
-forms (dense_arrays): the grid's own, or its copy zero-padded by one voxel
-(DenseGrid.padded) where the medium keeps one.
+(Medium.from_grids(pack=False)): the same step, reading the grids' own
+density and temperature arrays (dense_arrays) and the majorant pairs.
 
   render_wave        the renderer's wave: one launch makes each pixel's
                      camera ray, traces it and adds its sample to the film.
@@ -53,9 +51,8 @@ and the train step (diff/inverse.py make_train_step) one:
 
 WAVE_LAUNCHES, LAUNCHES, RECORD_LAUNCHES, REPLAY_LAUNCHES, LOSS_RAYS_LAUNCHES
 and the PLAIN_* counters of the plain versions count the launches of each,
-the DENSE_* counters those of the dense instantiations among them, and the
-PADDED_* counters those of the dense launches that read the padded copies,
-so a run can show which one its main path went through.
+and the DENSE_* counters those of the dense instantiations among them, so a
+run can show which one its main path went through.
 
 The kernels are compiled with nvcc at first use, from the checkout's own
 source, into volume_path_tracer_tpu_torch/_build/ (one library per source
@@ -138,11 +135,6 @@ LOSS_RAYS_LAUNCHES = 0  # loss_rays_kernel launches (loss_rays on CUDA tensors)
 PLAIN_LOSS_RAYS_LAUNCHES = 0  # plain-version runs (loss_rays_plain)
 DENSE_RECORD_LAUNCHES = 0
 DENSE_REPLAY_LAUNCHES = 0
-# Those of the DENSE_* launches that read the grids' padded copies.
-PADDED_WAVE_LAUNCHES = 0
-PADDED_LAUNCHES = 0
-PADDED_RECORD_LAUNCHES = 0
-PADDED_REPLAY_LAUNCHES = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "trace_lanes.cu")
@@ -360,13 +352,10 @@ class Occupancy(NamedTuple):
     replay: int  # replay_lanes_kernel
 
 
-def occupancy(device: torch.device, dense: bool = False, padded: bool = False) -> Occupancy:
-    """The Occupancy of the packed or the dense instantiations on `device`,
-    the dense ones of the grid's own arrays or (padded) of the padded
-    copies."""
+def occupancy(device: torch.device, dense: bool = False) -> Occupancy:
+    """The Occupancy of the packed or the dense instantiations on `device`."""
     out = [ctypes.c_int(0) for _ in range(6)]
-    form = 0 if not dense else 2 if padded else 1
-    err = _library().vpt_occupancy(device.index or 0, form, *(ctypes.byref(v) for v in out))
+    err = _library().vpt_occupancy(device.index or 0, int(dense), *(ctypes.byref(v) for v in out))
     _raise_on(err, "occupancy query")
     return Occupancy(*(v.value for v in out))
 
@@ -533,8 +522,10 @@ def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.T
     rows = medium.density_rows
     dense = rows is None
     if dense:
-        for name, data in zip(("density", "temperature"), dense_arrays(medium, emission_enabled(medium, params))):
-            _check_dense(data, f"the {name} array", dev)
+        dens, tdata = dense_arrays(medium, emission_enabled(medium, params))
+        _check_dense(dens, medium.density.shape, "the density array", dev)
+        if tdata is not None:
+            _check_dense(tdata, medium.temperature.shape, "the temperature array", dev)
         maj = medium.majorants.rows
         if maj.dtype != torch.float32 or maj.dim() != 2 or maj.shape[1] != 2 or maj.device != dev \
                 or not maj.is_contiguous() or maj.data_ptr() % 8:
@@ -559,32 +550,23 @@ def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.T
     return dense, emission
 
 
-def _check_dense(data: Optional[torch.Tensor], name: str, device):
-    """A dense array as the dense instantiations read it: 32-bit voxel
-    indices, as row indices are for a table."""
-    if data is None:
-        return
+def _check_dense(data: torch.Tensor, shape, name: str, device):
+    """A dense array as the dense instantiations read it: the grid's own,
+    of the grid's `shape` (the kernels index it by that shape, and the launch
+    refuses an array of another length), with 32-bit voxel indices, as row
+    indices are for a table."""
     if data.dtype != torch.float32 or data.dim() != 3 or data.device != device \
             or not data.is_contiguous() or data.numel() >= 2**31:
         raise ValueError(f"{name} must be a contiguous float32 [X, Y, Z] tensor of fewer "
                          f"than 2^31 voxels on {device}")
+    if tuple(data.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(data.shape)}, its grid {tuple(shape)}")
 
 
 def dense_arrays(medium: Medium, emission: bool):
-    """(density, temperature or None) arrays that a dense launch reads:
-    the grids' padded copies (DenseGrid.padded, models/medium.py
-    padded_copies) where every grid it reads has one, else the grids' own
-    arrays. The kernel tells the two forms apart by the arrays' lengths.
-    `emission`: whether the launch reads the temperature."""
-    grids = [medium.density] + ([medium.temperature] if emission else [])
-    padded = all(g.padded is not None for g in grids)
-    out = [g.padded if padded else g.data for g in grids]
-    return out[0], (out[1] if emission else None)
-
-
-def _reads_padded(medium: Medium, consts: KernelConstants) -> bool:
-    """Whether a launch with these constants reads the padded copies."""
-    return consts.dense and dense_arrays(medium, consts.emission == 3)[0] is medium.density.padded
+    """(density, temperature or None) arrays that a dense launch reads: the
+    grids' own. `emission`: whether the launch reads the temperature."""
+    return medium.density.data, (medium.temperature.data if emission else None)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -724,10 +706,9 @@ def _trace_lanes(medium, params, bb_table, sf, si, pixel_ids, streams, max_steps
         sf.data_ptr(), si.data_ptr(), pids.data_ptr(), strm.data_ptr(), n, int(max_steps), *tables,
     )
     _raise_on(err, "trace_lanes launch")
-    global LAUNCHES, DENSE_LAUNCHES, PADDED_LAUNCHES
+    global LAUNCHES, DENSE_LAUNCHES
     LAUNCHES += 1
     DENSE_LAUNCHES += consts.dense
-    PADDED_LAUNCHES += _reads_padded(medium, consts)
     return sf, si
 
 
@@ -793,10 +774,9 @@ def render_wave(
             film.data_ptr(), _ptr(pids), start, n, int(stream) & 0xFFFFFFFF, int(steps), *tables,
         )
         _raise_on(err, "render_wave launch")
-        global WAVE_LAUNCHES, DENSE_WAVE_LAUNCHES, PADDED_WAVE_LAUNCHES
+        global WAVE_LAUNCHES, DENSE_WAVE_LAUNCHES
         WAVE_LAUNCHES += 1
         DENSE_WAVE_LAUNCHES += consts.dense
-        PADDED_WAVE_LAUNCHES += _reads_padded(medium, consts)
         # The scratch belongs to the next launch too: hand out a copy.
         if return_lane_iters:
             out = consts.scratch.clone()
@@ -900,10 +880,9 @@ def record_lanes(
         ctr.data_ptr(), tf.data_ptr(), int(k_walks), *tables,
     )
     _raise_on(err, "record_lanes launch")
-    global RECORD_LAUNCHES, DENSE_RECORD_LAUNCHES, PADDED_RECORD_LAUNCHES
+    global RECORD_LAUNCHES, DENSE_RECORD_LAUNCHES
     RECORD_LAUNCHES += 1
     DENSE_RECORD_LAUNCHES += consts.dense
-    PADDED_RECORD_LAUNCHES += _reads_padded(medium, consts)
     return L, tf, ctr
 
 
@@ -1013,10 +992,9 @@ def replay_lanes(
         _ptr(d_temp), _ptr(gacc), _ptr(steps), *tables,
     )
     _raise_on(err, "replay_lanes launch")
-    global REPLAY_LAUNCHES, DENSE_REPLAY_LAUNCHES, PADDED_REPLAY_LAUNCHES
+    global REPLAY_LAUNCHES, DENSE_REPLAY_LAUNCHES
     REPLAY_LAUNCHES += 1
     DENSE_REPLAY_LAUNCHES += consts.dense
-    PADDED_REPLAY_LAUNCHES += _reads_padded(medium, consts)
     if with_check:
         return d_density, d_temp, gacc, dot3(g_vec, L_fwd)
     return d_density, d_temp
