@@ -750,6 +750,8 @@ def train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids):
         float(loss)
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts(mk)
+        graph = getattr(step, "graph", None)  # the step's CUDA graph, where the package has one
+        graph_counts = (graph.captures, graph.replays) if graph is not None else (0, 0)
         chains, losses = [], []
         for rep in range(3):
             torch.cuda.synchronize()
@@ -762,21 +764,36 @@ def train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids):
                   mk.DENSE_RECORD_LAUNCHES, mk.DENSE_REPLAY_LAUNCHES, mk.LAUNCHES, mk.WAVE_LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         n_steps = 3 * TRAIN_CHAIN
-        check(counts[0] == n_steps and counts[1] == n_steps,
-              f"{label}: {counts[0]} record and {counts[1]} replay launches in {n_steps} steps")
+        # The host runs a step's body (and so its launches) where the step is
+        # eager or captured; a replayed step launches its graph alone.
+        captured, replayed = ((graph.captures - graph_counts[0], graph.replays - graph_counts[1])
+                              if graph is not None else (0, 0))
+        bodies = n_steps - replayed + captured
+        check(counts[0] == bodies and counts[1] == bodies,
+              f"{label}: {counts[0]} record and {counts[1]} replay launches in {n_steps} steps "
+              f"({replayed} replayed, {captured} captured)")
         check(counts[2] == 0 and counts[3] == 0, f"{label}: the train step ran a plain version")
-        dense_want = 0 if pack else n_steps
+        dense_want = 0 if pack else bodies
         check(counts[4] == dense_want and counts[5] == dense_want,
               f"{label}: {counts[4]} / {counts[5]} dense launches, expected {dense_want}")
         if has_loss_rays:
-            check(mk.LOSS_RAYS_LAUNCHES == n_steps and mk.PLAIN_LOSS_RAYS_LAUNCHES == 0,
+            check(mk.LOSS_RAYS_LAUNCHES == bodies and mk.PLAIN_LOSS_RAYS_LAUNCHES == 0,
                   f"{label}: {mk.LOSS_RAYS_LAUNCHES} loss_rays_kernel launches and {mk.PLAIN_LOSS_RAYS_LAUNCHES} "
                   f"plain ray batches in {n_steps} steps")
+        check(pack or graph is None or (replayed, captured) == (n_steps, 1),
+              f"{label}: {replayed} of {n_steps} steps replayed its CUDA graph, {captured} captures")
         launches["record"] += counts[0]
         launches["replay"] += counts[1]
         launches["loss_rays"] += mk.LOSS_RAYS_LAUNCHES
         finite = all(bool(torch.isfinite(x).all()) for x in inv.grid_leaves(grids))
-        grads_finite = all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in inv.grid_leaves(grids))
+
+        def grad_finite(x):
+            if x.grad is not None:
+                return bool(torch.isfinite(x.grad).all())
+            # a replayed step's gradient lives in its graph: Adam's moments took it
+            return all(bool(torch.isfinite(opt.state[x][k]).all()) for k in ("exp_avg", "exp_avg_sq"))
+
+        grads_finite = all(grad_finite(x) for x in inv.grid_leaves(grids))
         check(all(np.isfinite(losses)) and finite and grads_finite, f"{label}: loss, grids or gradients not finite")
         best = min(chains)
         rays_s = TRAIN_SIZE * TRAIN_SIZE * TRAIN_K * TRAIN_CHAIN / best
@@ -809,7 +826,8 @@ def train_cells(card, dev, fog_base, wdas, fog_cam, coords, tpids):
               f"lanes a step, max_iters {TRAIN_ITERS}, {'packed' if pack else 'unpacked'}"
               f"{', dual buffer' if dual else ''}): train rays/s {rays_s:.1f} (best of 3 chains of {TRAIN_CHAIN} "
               f"steps, chain seconds {[round(c, 4) for c in chains]}); losses {[f'{x:.6g}' for x in losses]}; launches "
-              f"in {n_steps} steps: record {counts[0]}, replay {counts[1]}, plain 0, dense {counts[4]} / {counts[5]}; "
+              f"in {n_steps} steps ({replayed} replayed as one CUDA graph, {captured} captured): record {counts[0]}, "
+              f"replay {counts[1]}, plain 0, dense {counts[4]} / {counts[5]}; "
               f"peak device memory {peak / 1e9:.3f} GB; one profiled step {wall * 1e3:.2f} ms: device "
               f"{rec + rep + rest:.3f} ms = record kernel {rec:.3f} + replay kernel {rep:.3f} + the rest {rest:.3f} "
               f"(most: " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}" for e in top)
@@ -1377,6 +1395,8 @@ def mesh_phase(card, dev):
         grids, opt, loss = step(grids, opt, coords, tpids, target, (3, 1))
         first = (float(loss), grids.log_density.grad.clone())
         reset_launch_counts(mk)
+        graph = getattr(step, "graph", None)  # one device's step replays a CUDA graph after its first
+        graph_counts = (graph.captures, graph.replays) if graph is not None else (0, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(MESH_TRAIN_STEPS):
@@ -1384,11 +1404,13 @@ def mesh_phase(card, dev):
         float(loss)
         dt = time.perf_counter() - t0
         cells = 1 if mesh is None else mesh.size
-        check(mk.RECORD_LAUNCHES == mk.REPLAY_LAUNCHES == MESH_TRAIN_STEPS * cells
+        bodies = MESH_TRAIN_STEPS - ((graph.replays - graph_counts[1]) - (graph.captures - graph_counts[0])
+                                     if graph is not None else 0)
+        check(mk.RECORD_LAUNCHES == mk.REPLAY_LAUNCHES == bodies * cells
               and mk.PLAIN_RECORD_LAUNCHES + mk.PLAIN_REPLAY_LAUNCHES == 0,
               f"train {label}: {mk.RECORD_LAUNCHES} record / {mk.REPLAY_LAUNCHES} replay launches in "
-              f"{MESH_TRAIN_STEPS} steps of {cells} cell(s)")
-        check(mk.LOSS_RAYS_LAUNCHES == MESH_TRAIN_STEPS * cells and mk.PLAIN_LOSS_RAYS_LAUNCHES == 0,
+              f"{MESH_TRAIN_STEPS} steps of {cells} cell(s), {bodies} of them run on the host")
+        check(mk.LOSS_RAYS_LAUNCHES == bodies * cells and mk.PLAIN_LOSS_RAYS_LAUNCHES == 0,
               f"train {label}: {mk.LOSS_RAYS_LAUNCHES} loss_rays_kernel launches and {mk.PLAIN_LOSS_RAYS_LAUNCHES} "
               f"plain ray batches in {MESH_TRAIN_STEPS} steps of {cells} cell(s)")
         if mesh is not None:

@@ -21,7 +21,7 @@ so there is no corner-row table and no fold on the card:
   gradient, the grids agree on the boundary shell too: a corner outside the
   grid is dropped, not wrapped into a neighbouring row;
 - the grids have the medium's shapes, a call is one replay launch and no
-  plain run, and a train step on the card enters no prb.fold span.
+  plain run, and an eager train step on the card enters no prb.fold span.
 """
 import numpy as np
 import pytest
@@ -178,8 +178,10 @@ def test_boundary_voxels_drop_outside_corners(dev, form):
 
 
 def test_train_step_on_the_card_has_no_fold(dev):
-    """One train step under a profile: the replay span is there, the fold's
-    is not, and the backward is one replay launch."""
+    """One eager train step under a profile (a fresh Adam: the step runs as
+    a CUDA graph only once Adam has its state, and the graph's body is this
+    step's, tests/test_torch_cuda_train_graph.py): the replay span is there,
+    the fold's is not, and the backward is one replay launch."""
     W = H = 16
     base = Medium.from_grids(fog_sphere(radius=6.0, falloff=2.0), pack=False, device=dev)
     cam = Camera.from_parameters(CameraParameters((24.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 38.0, 0.5),
@@ -191,7 +193,7 @@ def test_train_step_on_the_card_has_no_fold(dev):
     opt = inv.make_optimizer(grids)
     step = inv.make_train_step(base, SCATTER, cam, None, n_iters=64, samples_per_step=2)
     target = torch.zeros((W * H, 3), device=dev)
-    step(grids, opt, raster, pids, target, (3, 1))
+    step(grids, inv.make_optimizer(grids), raster, pids, target, (3, 1))  # warm-up, with an Adam of its own
     torch.cuda.synchronize(dev)
     launches, plain = tmk.REPLAY_LAUNCHES, tmk.PLAIN_REPLAY_LAUNCHES
     with profile(activities=[ProfilerActivity.CPU]) as prof:

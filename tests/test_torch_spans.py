@@ -6,7 +6,9 @@ spans nested by time on the profiler's clock: render.wave holds
 render.film; shard.wave one shard.cell a cell and shard.gather; train.step
 the optimizer's zero_grad, train.rebuild, train.rays, prb.record,
 train.backward (holding the replay, prb.replay, which holds its fold,
-prb.fold) and the optimizer's step.
+prb.fold) and the optimizer's step. On the card a step that runs as a CUDA
+graph records train.capture where it captures and train.replay where it
+replays (tests/test_torch_cuda_train_graph.py).
 Every span("...") in the package is named in SPANS, and every name in SPANS
 is used.
 """
@@ -123,7 +125,12 @@ def test_every_span_named_in_spans_and_used():
     assert len(spans.SPANS) == len(set(spans.SPANS))
 
 
-@pytest.mark.parametrize("name", ["render.wave", "train.step"])
+def test_spans_name_the_graph_step():
+    """The train step's CUDA graph records its capture and its replay."""
+    assert {"train.capture", "train.replay"} <= set(spans.SPANS)
+
+
+@pytest.mark.parametrize("name", ["render.wave", "train.step", "train.capture", "train.replay"])
 def test_span_under_a_profiler_records_its_name(name):
     def body():
         with spans.span(name):

@@ -1305,10 +1305,15 @@ constexpr int LOSS_RAYS_THREADS = 256;
 template <typename R, typename P>
 __global__ void __launch_bounds__(LOSS_RAYS_THREADS) loss_rays_kernel(
     const R* __restrict__ raster, const P* __restrict__ pids, const float* __restrict__ m,
-    const float* __restrict__ t, uint32_t seed, uint32_t wave0, int k, int n, float jitter,
-    float* __restrict__ d_w, P* __restrict__ pids_k, int* __restrict__ stream_k, float* __restrict__ jit) {
+    const float* __restrict__ t, uint32_t seed, uint32_t wave0, const int* __restrict__ sw, int k, int n,
+    float jitter, float* __restrict__ d_w, P* __restrict__ pids_k, int* __restrict__ stream_k,
+    float* __restrict__ jit) {
   const long long q = (long long)blockIdx.x * LOSS_RAYS_THREADS + threadIdx.x;
   if (q >= (long long)k * n) return;
+  if (sw != nullptr) {
+    seed = (uint32_t)sw[0];
+    wave0 = (uint32_t)sw[1];
+  }
   const int i = (int)(q / n), j = (int)(q - (long long)i * n);
   const uint32_t strm = seed * 0x9E3779B9u + (wave0 * (uint32_t)k + (uint32_t)i) * 0x85EBCA6Bu;
   const P pid = pids[j];
@@ -1335,12 +1340,12 @@ __global__ void __launch_bounds__(LOSS_RAYS_THREADS) loss_rays_kernel(
 
 template <typename R, typename P>
 int launch_loss_rays(void* stream, const void* raster, const void* pids, const float* m, const float* t,
-                     uint32_t seed, uint32_t wave0, int k, int n, float jitter, float* d_w, void* pids_k,
-                     int* stream_k, float* jit) {
+                     uint32_t seed, uint32_t wave0, const int* sw, int k, int n, float jitter, float* d_w,
+                     void* pids_k, int* stream_k, float* jit) {
   const long long lanes = (long long)k * n;
   const int blocks = (int)((lanes + LOSS_RAYS_THREADS - 1) / LOSS_RAYS_THREADS);
   loss_rays_kernel<R, P><<<blocks, LOSS_RAYS_THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const R*>(raster), static_cast<const P*>(pids), m, t, seed, wave0, k, n, jitter, d_w,
+      static_cast<const R*>(raster), static_cast<const P*>(pids), m, t, seed, wave0, sw, k, n, jitter, d_w,
       static_cast<P*>(pids_k), stream_k, jit);
   return (int)cudaGetLastError();
 }
@@ -1574,25 +1579,28 @@ int vpt_replay_lanes(int device, void* stream, const float* o_world, int o_strid
 // [n] are int32, or int64 where raster_i64 / pids_i64, and pids_k takes
 // pids' type; m [3, 3] and t [3] are the camera's raster_to_world_dir and
 // raster_to_world_trans, float32 on the device; jitter 1 moves each ray by
-// half a pixel times its uniforms, 0 not at all.
+// half a pixel times its uniforms, 0 not at all. sw: null, or two int32
+// words on the device (uint32 bits) that the kernel reads in place of seed
+// and wave0 when it runs, so that a CUDA graph which captured the launch
+// takes each replay's seed and wave from them.
 int vpt_loss_rays(int device, void* stream, const void* raster, int raster_i64, const void* pids, int pids_i64,
-                  const float* m, const float* t, unsigned int seed, unsigned int wave0, int k, int n,
-                  int jitter, float* d_w, void* pids_k, int* stream_k, float* jit) {
+                  const float* m, const float* t, unsigned int seed, unsigned int wave0, const int* sw, int k,
+                  int n, int jitter, float* d_w, void* pids_k, int* stream_k, float* jit) {
   if (k < 0 || n < 0 || (long long)k * n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)k * n == 0) return 0;
   const float scale = jitter ? 0.5f : 0.f;
   if (raster_i64) {
-    return pids_i64 ? launch_loss_rays<long long, long long>(stream, raster, pids, m, t, seed, wave0, k, n, scale,
-                                                             d_w, pids_k, stream_k, jit)
-                    : launch_loss_rays<long long, int>(stream, raster, pids, m, t, seed, wave0, k, n, scale, d_w,
-                                                       pids_k, stream_k, jit);
+    return pids_i64 ? launch_loss_rays<long long, long long>(stream, raster, pids, m, t, seed, wave0, sw, k, n,
+                                                             scale, d_w, pids_k, stream_k, jit)
+                    : launch_loss_rays<long long, int>(stream, raster, pids, m, t, seed, wave0, sw, k, n, scale,
+                                                       d_w, pids_k, stream_k, jit);
   }
-  return pids_i64 ? launch_loss_rays<int, long long>(stream, raster, pids, m, t, seed, wave0, k, n, scale, d_w,
-                                                     pids_k, stream_k, jit)
-                  : launch_loss_rays<int, int>(stream, raster, pids, m, t, seed, wave0, k, n, scale, d_w, pids_k,
-                                               stream_k, jit);
+  return pids_i64 ? launch_loss_rays<int, long long>(stream, raster, pids, m, t, seed, wave0, sw, k, n, scale,
+                                                     d_w, pids_k, stream_k, jit)
+                  : launch_loss_rays<int, int>(stream, raster, pids, m, t, seed, wave0, sw, k, n, scale, d_w,
+                                               pids_k, stream_k, jit);
 }
 
 // Resident blocks of the production kernels on `device` (see

@@ -7,16 +7,20 @@ and the replay kernel backward), its ray batch made by render/megakernel.py
 loss_rays (on the card one launch that waits for nothing), and compares
 the per-pixel mean with the target; the train step divides the gradient by
 the loss's count and hands it to torch.optim.Adam, the update optax.adam
-makes (its rounding order differs). Checkpoints keep the JAX package's file
-layout, so a checkpoint crosses packages in both directions. With a mesh
-(parallel/shard.py) each cell takes a rays shard and an 'spp' wave, and the
-gradients and the loss are summed over every cell before the update.
+makes (its rounding order differs). On the card, once Adam has its state,
+the step's launches run as one CUDA graph (StepGraph): the host replays
+them with one call instead of issuing each. Checkpoints keep the JAX
+package's file layout, so a checkpoint crosses packages in both directions.
+With a mesh (parallel/shard.py) each cell takes a rays shard and an 'spp'
+wave, and the gradients and the loss are summed over every cell before the
+update.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import os
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -29,7 +33,7 @@ from ..models.camera import Camera
 from ..models.medium import Medium, pack_fused_rows
 from ..parallel.shard import Mesh, to_device, tree_sum
 from ..render.integrator import IntegratorParams, trace_rays_diff
-from ..render.megakernel import loss_rays
+from ..render.megakernel import kept_constants, loss_rays
 from ..utils.spans import span
 from .prb import trace_rays_prb
 
@@ -48,8 +52,12 @@ def grid_leaves(grids: OptimizableGrids):
 
 def make_optimizer(grids: OptimizableGrids, lr: float = 1e-2) -> torch.optim.Adam:
     """torch.optim.Adam over the grids' tensors, with optax.adam's defaults
-    (b1 0.9, b2 0.999, eps 1e-8)."""
-    return torch.optim.Adam(grid_leaves(grids), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    (b1 0.9, b2 0.999, eps 1e-8). On CUDA leaves it is capturable (its step
+    count on the card, so that a CUDA graph can hold the update: StepGraph),
+    foreach as on the CPU."""
+    leaves = grid_leaves(grids)
+    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=all(p.is_cuda for p in leaves))
 
 
 def save_train_checkpoint(path, grids: OptimizableGrids, opt_state: torch.optim.Adam, step: int) -> None:
@@ -75,7 +83,8 @@ def load_train_checkpoint(path, grids_like: OptimizableGrids, opt_state_like: to
     """Returns (grids, optimizer, step), or None when the file is absent or
     its leaves do not fit the templates. The grids' tensors are written in
     place and the optimizer's state set, so `opt_state_like` keeps working
-    on the same tensors."""
+    on the same tensors; a capturable optimizer gets its step count on the
+    leaf's device, as it keeps it."""
     if not os.path.exists(path):
         return None
     z = np.load(path)
@@ -89,12 +98,13 @@ def load_train_checkpoint(path, grids_like: OptimizableGrids, opt_state_like: to
             [a.shape for a in arrays[m + 1:]] != shapes * 2:
         return None
     count = int(arrays[m])
+    capturable = any(g.get("capturable", False) for g in opt_state_like.param_groups)
     with torch.no_grad():
         for p, a in zip(leaves, arrays[:m]):
             p.copy_(torch.from_numpy(np.asarray(a, dtype=np.float32)))
     for i, p in enumerate(leaves):
         opt_state_like.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            "step": torch.tensor(float(count), dtype=torch.float32, device=p.device if capturable else None),
             "exp_avg": torch.from_numpy(np.asarray(arrays[m + 1 + i], dtype=np.float32)).to(p.device),
             "exp_avg_sq": torch.from_numpy(np.asarray(arrays[2 * m + 1 + i], dtype=np.float32)).to(p.device),
         }
@@ -216,14 +226,21 @@ def make_train_step(
     `loss` is a 0-d tensor; nothing waits for the device. dual_buffer: see
     make_render_loss.
 
+    Without a mesh, with the path replay on unpacked media (use_prb,
+    pack=False), the step holds a StepGraph (`step.graph`; None otherwise):
+    on CUDA leaves with a capturable Adam that has its state (every step
+    after the first), the same body runs as one CUDA graph, captured at the
+    first such call and replayed after; such a step leaves the leaves'
+    .grad None. Every other call runs the body eagerly.
+
     With a mesh (the counterpart of the JAX package's shard_map step) the
     batch's N rows split into R contiguous shards (N a multiple of R); cell
     (r, s) takes shard r at seed-wave (seed, wave * S + s) on its device,
-    and its own backward gives its gradients on the grids' device. The
-    gradients and the squared error are summed over this process's cells
-    (shard.tree_sum), then across processes (torch.distributed.all_reduce),
-    before the update: loss = sum / n and gradient / n, n the count over
-    every cell.
+    and its own backward (of its squared error over n) gives its gradients
+    on the grids' device. The gradients and the squared error are summed
+    over this process's cells (shard.tree_sum), then across processes
+    (torch.distributed.all_reduce), before the update: loss = sum / n and
+    gradient = the sum's gradient / n, n the count over every cell.
     """
     make_loss = functools.partial(
         make_render_loss, params=params, n_iters=n_iters, use_jitter=use_jitter,
@@ -233,27 +250,144 @@ def make_train_step(
         return _sharded_train_step(mesh, base_medium, camera, bb_table, make_loss)
     loss_fn = make_loss(base_medium, camera=camera, bb_table=bb_table)
 
+    def body(grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px, seed_wave):
+        with span("train.optimizer"):
+            opt.zero_grad(set_to_none=True)
+        sq, n = loss_fn(grids, raster, pids, target_px, seed_wave)
+        with span("train.backward"):
+            (sq / n).backward()
+        leaves = grid_leaves(grids)
+        _update(opt, leaves, [p.grad for p in leaves])
+        return sq, n
+
+    graph = StepGraph(body) if use_prb and not pack else None
+
     def train_step(grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px, seed_wave):
         with span("train.step"):
-            with span("train.optimizer"):
-                opt.zero_grad(set_to_none=True)
-            sq, n = loss_fn(grids, raster, pids, target_px, seed_wave)
-            with span("train.backward"):
-                sq.backward()
-            leaves = grid_leaves(grids)
-            _update(opt, leaves, [p.grad for p in leaves], n)
+            if graph is not None and graph.applies(grids, opt, raster, pids, target_px):
+                sq, n = graph(grids, opt, raster, pids, target_px, seed_wave)
+            else:
+                sq, n = body(grids, opt, raster, pids, target_px, seed_wave)
             return grids, opt, sq.detach() / n
 
+    train_step.graph = graph
     return train_step
 
 
-def _update(opt: torch.optim.Adam, leaves, grads, n: float):
-    """The step's update: each leaf's gradient `grads` (None: it has none)
-    over the loss's count n, then opt.step()."""
+_LIVE = weakref.WeakSet()  # the StepGraphs that hold a graph: the pools they share
+
+
+def _fingerprint(x):
+    """What a captured graph baked in of a tensor (its memory) or a value."""
+    if isinstance(x, torch.Tensor):
+        return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+    return x
+
+
+class StepGraph:
+    """One train step's body as a CUDA graph on one device.
+
+    The body (zero_grad, the loss, its backward, the update) is captured as
+    it runs eagerly, every kernel in its own hand-written or torch form, and
+    replayed by one launch. A graph bakes in memory and values, so it is
+    replayed only while what it read is unchanged: the leaves, Adam's state
+    tensors and hyperparameters, and the raster, pids and target tensors
+    (the caller's own, read where they lie: a target changed in place is
+    read as it is then); on any change it is captured again (`captures`
+    counts them). The seed and wave reach loss_rays_kernel as two device
+    words, written before each replay by a fill whose value travels in the
+    launch: nothing is copied from the host and nothing waits for the card.
+
+    The graphs of a device share one memory pool. That is safe in any call
+    order because nothing a replay wrote inside the pool is read after it
+    returns: the loss (kept alive by its graph) is divided by an eager op
+    on the same stream, and the leaves, Adam's state, the inputs and the
+    words live outside the pool. The gradients live in it, so a replayed
+    step leaves the leaves' .grad None.
+    """
+
+    def __init__(self, body):
+        self.body = body
+        self.graph = self.key = self.device = None
+        self.inputs = ()  # the raster, pids and target the graph reads (kept alive)
+        self.words = None  # int64 [1]: as int32 [2], the seed and wave words
+        self.stream = None  # the side stream the captures run on
+        self.sq = self.n = None  # the captured loss's sum (in the pool) and its count
+        self.kept = ()  # the kernel constants the captured launches point into
+        self.captures = self.replays = 0
+
+    @staticmethod
+    def applies(grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px) -> bool:
+        """Whether this call can run as the graph: every tensor on one CUDA
+        device, and a capturable Adam that has its state for every leaf."""
+        leaves = grid_leaves(grids)
+        dev = leaves[0].device
+        return (dev.type == "cuda" and all(t.device == dev for t in (*leaves, raster, pids, target_px))
+                and all(g.get("capturable", False) for g in opt.param_groups)
+                and all(p in opt.state and "step" in opt.state[p] for p in leaves))
+
+    @staticmethod
+    def _key(grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px):
+        leaves = grid_leaves(grids)
+        state = [_fingerprint(v) for p in leaves for _, v in sorted(opt.state[p].items())]
+        hyper = [tuple((k, _fingerprint(v)) for k, v in sorted(g.items()) if k != "params")
+                 for g in opt.param_groups]
+        params = [_fingerprint(p) for g in opt.param_groups for p in g["params"]]
+        inputs = [_fingerprint(x) for x in (raster, pids, target_px)]
+        return tuple(map(tuple, ([_fingerprint(p) for p in leaves], state, hyper, params, inputs)))
+
+    def __call__(self, grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px, seed_wave):
+        """The step as the graph: (the loss's sum, its count)."""
+        key = self._key(grids, opt, raster, pids, target_px)
+        if key != self.key:
+            with span("train.capture"):
+                self._capture(key, grids, opt, raster, pids, target_px)
+        with span("train.replay"):
+            seed, wave = int(seed_wave[0]) & 0xFFFFFFFF, int(seed_wave[1]) & 0xFFFFFFFF
+            word = wave << 32 | seed  # little-endian: the int32 view reads (seed, wave)
+            self.words.fill_(word - (word >> 63 << 64))
+            self.graph.replay()
+            self.replays += 1
+        return self.sq, self.n
+
+    def _capture(self, key, grids: OptimizableGrids, opt: torch.optim.Adam, raster, pids, target_px):
+        dev = raster.device
+        self.graph = self.key = self.sq = None  # the old graph's pool blocks go back first
+        # A pool is shared through a live graph: one whose graphs all died
+        # may not take a capture again.
+        live = [g.graph for g in _LIVE if g.device == dev and g.graph is not None]
+        pool = live[0].pool() if live else torch.cuda.graph_pool_handle()
+        if self.words is None or self.words.device != dev:
+            self.words = torch.zeros((1,), dtype=torch.int64, device=dev)
+            self.stream = torch.cuda.Stream(dev)
+        side, here = self.stream, torch.cuda.current_stream(dev)
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool)
+            try:
+                sq, n = self.body(grids, opt, raster, pids, target_px, self.words.view(torch.int32))
+            finally:
+                graph.capture_end()
+        here.wait_stream(side)
+        for p in grid_leaves(grids):
+            p.grad = None  # its memory is the pool's: another graph may reuse it
+        self.graph, self.key, self.device, self.sq, self.n = graph, key, dev, sq.detach(), n
+        self.inputs = (raster, pids, target_px)
+        self.kept = kept_constants()
+        self.captures += 1
+        _LIVE.add(self)
+
+
+def _update(opt: torch.optim.Adam, leaves, grads):
+    """The step's update: each leaf's gradient `grads` (None: it has none),
+    then opt.step(). The gradients are already over the loss's count: the
+    steps differentiate the loss's sum over its count, which scales the
+    backward's seed and costs no pass of its own over the gradient grids."""
     with span("train.optimizer"):
         for p, g in zip(leaves, grads):
             # optax updates a leaf with no gradient as one with a zero gradient
-            p.grad = torch.zeros_like(p) if g is None else g.div_(n)
+            p.grad = torch.zeros_like(p) if g is None else g
         opt.step()
 
 
@@ -277,6 +411,7 @@ def _sharded_train_step(mesh: Mesh, base_medium: Medium, camera: Camera, bb_tabl
             if n_rays % R:
                 raise ValueError(f"{n_rays} pixels do not split into {R} 'rays' shards (pad the batch)")
             per = n_rays // R
+            n = float(per * 3 * mesh.size)
             seed, wave = int(seed_wave[0]), int(seed_wave[1])
             sqs, grads = [], []
             for r, s, dev in mesh.local_cells():
@@ -285,7 +420,7 @@ def _sharded_train_step(mesh: Mesh, base_medium: Medium, camera: Camera, bb_tabl
                 sq, _ = cell_loss(dev)(cell_grids, raster[rows].to(dev), pids[rows].to(dev),
                                        target_px[rows].to(dev), (seed, (wave * S + s) & 0xFFFFFFFF))
                 with span("train.backward"):
-                    g = torch.autograd.grad(sq, leaves, allow_unused=True)
+                    g = torch.autograd.grad(sq / n, leaves, allow_unused=True)
                 sqs.append(sq.detach().to(leaves[0].device))
                 grads.append(g)
             sq = tree_sum(sqs)
@@ -295,8 +430,8 @@ def _sharded_train_step(mesh: Mesh, base_medium: Medium, camera: Camera, bb_tabl
                 for t in (sq, *total):
                     if t is not None:
                         dist.all_reduce(t)
-            n = float(per * 3 * mesh.size)
-            _update(opt, leaves, total, n)
+            _update(opt, leaves, total)
             return grids, opt, sq / n
 
+    train_step.graph = None
     return train_step

@@ -209,7 +209,8 @@ def joint_main(args, dev) -> dict:
     # temperature must travel) and the dual-buffer loss (an unbiased MSE
     # gradient: the plain k-sample MSE's variance term biases emission).
     opt = torch.optim.Adam([{"params": [grids.log_density], "lr": 0.02},
-                            {"params": [grids.temperature], "lr": 0.3}], betas=(0.9, 0.999), eps=1e-8)
+                            {"params": [grids.temperature], "lr": 0.3}], betas=(0.9, 0.999), eps=1e-8,
+                           capturable=grids.log_density.is_cuda)  # on the card the step replays a CUDA graph
     step = make_train_step(base_med, params, camera, bb, n_iters=256, samples_per_step=4, dual_buffer=True)
 
     # Error metrics weight by density: emission is p_a * bb(T) with p_a ~

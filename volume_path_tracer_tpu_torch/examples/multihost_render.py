@@ -242,7 +242,8 @@ def train(args, mesh, dev, params, dump):
         losses.append(float(loss))
         if it == start_step:
             for name, p in zip(("grad_density", "grad_temperature"), grid_leaves(grids)):
-                dump[name] = p.grad.detach().cpu().numpy()
+                if p.grad is not None:  # a step replayed as a CUDA graph keeps no .grad
+                    dump[name] = p.grad.detach().cpu().numpy()
             dump["loss0"] = np.float32(losses[0])
         if rank0:
             print(f"[train] step {it}: loss {losses[-1]:.6f}", flush=True)

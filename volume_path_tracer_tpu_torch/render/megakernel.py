@@ -173,8 +173,8 @@ C_SIGNATURES = {
     "vpt_replay_lanes": (_I, (_I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I,
                               _P, _P, _P, _P, _P, _P, *_TABLES)),
     # device, stream, raster, raster_i64, pids, pids_i64, m, t, seed, wave0,
-    # k, n, jitter, d_w, pids_k, stream_k, jit
-    "vpt_loss_rays": (_I, (_I, _P, _P, _I, _P, _I, _P, _P, _U, _U, _I, _I, _I, _P, _P, _P, _P)),
+    # sw, k, n, jitter, d_w, pids_k, stream_k, jit
+    "vpt_loss_rays": (_I, (_I, _P, _P, _I, _P, _I, _P, _P, _U, _U, _P, _I, _I, _I, _P, _P, _P, _P)),
     # device, dense, wave_blocks, trace_blocks, threads, sms, record_blocks,
     # replay_blocks
     "vpt_occupancy": (_I, (_I, _I, _P, _P, _P, _P, _P, _P)),
@@ -513,6 +513,13 @@ def kernel_constants(
             for old in kept[:-GEOMETRY_ENTRIES]:
                 _CONSTANTS.pop(old, None)
         return consts
+
+
+def kept_constants() -> tuple:
+    """Every KernelConstants the cache holds now. A CUDA graph that captured
+    launches keeps these alive: its kernels' arguments point into their
+    tensors, which the cache may drop."""
+    return tuple(entry[1] for entry in _CONSTANTS.values())
 
 
 def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.Tensor]):
@@ -1025,8 +1032,10 @@ def loss_rays(camera: Camera, raster: torch.Tensor, pids: torch.Tensor, seed_wav
     wave seed_wave[1] * k + i of seed seed_wave[0] for i < k, as one flat
     batch (o_world, d_world [k * N, 3], pixel ids [k * N] of pids' type,
     per-lane stream words [k * N]). raster [N, 2] and pids [N] are integer;
-    seed_wave holds two Python ints. o_world is the camera's position
-    expanded over the lanes (stride 0).
+    seed_wave holds two Python ints, or is an int32 [2] tensor of their
+    uint32 bits on pids' device, which the kernel reads when it runs (what
+    a CUDA graph of the call replays with new words). o_world is the
+    camera's position expanded over the lanes (stride 0).
 
     On CUDA tensors (int32 or int64 raster and pids) this launches
     loss_rays_kernel once, or raises: nothing is copied from the host and
@@ -1059,13 +1068,18 @@ def loss_rays(camera: Camera, raster: torch.Tensor, pids: torch.Tensor, seed_wav
     _check(t, "raster_to_world_trans", torch.float32, (3,), dev)
     if jitter_out is not None:
         _check(jitter_out, "jitter_out", torch.float32, (lanes, 2), dev)
+    if isinstance(seed_wave, torch.Tensor):
+        _check(seed_wave, "seed_wave", torch.int32, (2,), dev)
+        seed, wave0, sw = 0, 0, seed_wave
+    else:
+        seed, wave0, sw = int(seed_wave[0]) & 0xFFFFFFFF, int(seed_wave[1]) & 0xFFFFFFFF, None
     d_w = torch.empty((lanes, 3), dtype=torch.float32, device=dev)
     pids_k = torch.empty((lanes,), dtype=pids.dtype, device=dev)
     stream_k = torch.empty((lanes,), dtype=torch.int32, device=dev)
     err = _library().vpt_loss_rays(
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream, raster.data_ptr(),
         int(raster.dtype == torch.int64), pids.data_ptr(), int(pids.dtype == torch.int64), m.data_ptr(),
-        t.data_ptr(), int(seed_wave[0]) & 0xFFFFFFFF, int(seed_wave[1]) & 0xFFFFFFFF, k, n, int(bool(use_jitter)),
+        t.data_ptr(), seed, wave0, _ptr(sw), k, n, int(bool(use_jitter)),
         d_w.data_ptr(), pids_k.data_ptr(), stream_k.data_ptr(), _ptr(jitter_out),
     )
     _raise_on(err, "loss_rays launch")

@@ -17,6 +17,7 @@ SPANS = (
     "render.wave", "render.film", "render.launch",
     "shard.wave", "shard.cell", "shard.gather", "shard.copy",
     "train.step", "train.rebuild", "train.rays", "train.backward", "train.optimizer",
+    "train.capture", "train.replay",
     "prb.record", "prb.replay", "prb.fold",
     "medium.build", "kernel.build", "kernel.constants",
 )
