@@ -271,8 +271,8 @@ def test_geometry_entries_still_check_the_medium():
 
 def _c_functions(source):
     """{name: (return kind, [parameter kinds])} of every vpt_* function
-    defined in the source's extern "C" block; a kind is "pointer", "int" or
-    "unsigned"."""
+    defined in the source's extern "C" block; a kind is "pointer", "int",
+    "unsigned" or "long long"."""
     block = source[source.index('extern "C" {'):]
 
     def kind(decl):
@@ -281,6 +281,8 @@ def _c_functions(source):
             return "pointer"
         if decl.startswith("unsigned") or decl.startswith("uint32_t"):
             return "unsigned"
+        if decl.startswith("long long "):
+            return "long long"
         assert decl.startswith("int "), decl
         return "int"
 
@@ -295,7 +297,7 @@ def _ctypes_kind(t):
     import ctypes
 
     return {ctypes.c_void_p: "pointer", ctypes.c_char_p: "pointer", ctypes.c_int: "int",
-            ctypes.c_uint: "unsigned"}[t]
+            ctypes.c_uint: "unsigned", ctypes.c_longlong: "long long"}[t]
 
 
 def test_c_signatures_match_the_kernel_source():

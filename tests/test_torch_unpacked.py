@@ -293,13 +293,22 @@ def test_tap_layout_counts_sectors_pairs_and_rows(name):
 
 
 def test_dense_arrays_of_2_to_31_voxels_are_refused():
+    """By the gradient launches only: the forward launches' fetch makes its
+    offsets in 64 bits and takes arrays of 2^31 voxels or more."""
     big = torch.empty((2048, 1024, 1024), dtype=torch.float32, device="meta")
-    with pytest.raises(ValueError, match="fewer than 2\\^31 voxels"):
-        tmk._check_dense(big, big.shape, "the density array", big.device)
+    huge = torch.empty((1300, 1300, 1300), dtype=torch.float32, device="meta")
+    for arr in (big, huge):
+        tmk._check_dense(arr, arr.shape, "the density array", arr.device)
+        with pytest.raises(ValueError, match="a gradient launch takes dense arrays of fewer than 2\\^31 voxels"):
+            tmk._check_dense(arr, arr.shape, "the density array", arr.device, gradient=True)
     ok = torch.empty((2047, 1024, 1024), dtype=torch.float32, device="meta")
     tmk._check_dense(ok, ok.shape, "the density array", ok.device)
-    with pytest.raises(ValueError, match="contiguous float32"):
-        tmk._check_dense(ok.to(torch.float16), ok.shape, "the density array", ok.device)
+    tmk._check_dense(ok, ok.shape, "the density array", ok.device, gradient=True)
+    for gradient in (False, True):
+        with pytest.raises(ValueError, match="contiguous float32"):
+            tmk._check_dense(ok.to(torch.float16), ok.shape, "the density array", ok.device, gradient)
+        with pytest.raises(ValueError, match="contiguous float32"):
+            tmk._check_dense(big.to(torch.float16), big.shape, "the density array", big.device, gradient)
 
 
 def test_kernel_source_has_the_dense_instantiations():
@@ -320,7 +329,7 @@ def test_kernel_source_has_the_dense_instantiations():
     # the dense arm is chosen at compile time, not by a branch in the step,
     # for density and temperature alike
     assert source.count("if constexpr (kDense != 0)") == 2
-    assert "dense_trilinear<kTap>(a.dens" in source and "dense_trilinear<kTap>(a.tdata" in source
+    assert "dense_trilinear<kTap, kWide>(a.dens" in source and "dense_trilinear<kTap, kWide>(a.tdata" in source
     # the launch refuses a dense or temperature array that is not its grid's
     # voxel count, the only length the kernels index by
     assert "if (a.n_dens != (long long)ip[I_X] * ip[I_Y] * ip[I_Z]) return (int)cudaErrorInvalidValue;" in source
@@ -329,5 +338,16 @@ def test_kernel_source_has_the_dense_instantiations():
     assert source.count("__fmaf_rn(a.x, w[0], __fmul_rn(a.y, w[1]))") == 1
     assert "float s = v[0] * w[0];" in source
     # the C interface carries the three new arrays to all five launches
-    # (and through set_tables and launch_wave)
-    assert source.count("const float* dens, int n_dens, const float* maj, int n_maj") == 7
+    # (and through set_tables and launch_wave), their lengths in 64 bits
+    assert source.count("const float* dens, long long n_dens, const float* maj, int n_maj") == 7
+    assert source.count("const float* tdata, long long n_tdata") == 7
+    assert "int n_dens" not in source and "int n_tdata" not in source
+    # the forward kinds' fetch makes the base voxel's offset once, in 64
+    # bits, and adds the corner strides to it; the gradient kinds' (arrays
+    # under 2^31 voxels) keeps an int offset a corner
+    assert "constexpr bool kWide = kKind != kRecordKind && kKind != kReplayKind;" in source
+    assert "const long long base = kWide ? ((long long)ix * Y + iy) * Z + iz : 0;" in source
+    assert "const long long flat = base + ((c >> 2) ? yz : 0) + (((c >> 1) & 1) ? Z : 0) + (c & 1);" in source
+    assert "const int flat = (cx * Y + cy) * Z + cz;" in source
+    assert source.count("lane_step<kTap, kDense, kWide>(L, a);") == 2
+    assert "traverse<kTap, kDense, false>(L, a, tr);" in source

@@ -12,9 +12,10 @@ package imports torch and numpy only: never jax, never volume_path_tracer_tpu.
 Entry points run on the `cuda` device unless the caller passes device="cpu".
 
 The names below are those the JAX package exports at its top level, in the
-same places (file I/O is grids.nvdb: read_nvdb, read_nvdb_medium, write_nvdb;
-the tools are tools.trace and tools.visualize_ray). Importing the package
-builds no kernel and touches no device.
+same places (file I/O is grids.nvdb: read_nvdb, read_nvdb_grids,
+read_nvdb_medium, write_nvdb; the tools are tools.trace and
+tools.visualize_ray). Importing the package builds no kernel and touches no
+device.
 """
 
 __version__ = "0.1.0"

@@ -207,13 +207,14 @@ struct Args {
   const float* bb_pairs;
   // Dense instantiations (dens not null; rows and trows are then unused):
   // the density array [X, Y, Z], the majorant pairs [n_maj, 2] and, for an
-  // emissive medium, the temperature array [TX, TY, TZ].
+  // emissive medium, the temperature array [TX, TY, TZ]. An array may hold
+  // 2^31 voxels or more: its length and offsets are 64-bit.
   const float* dens;
-  int n_dens;
+  long long n_dens;
   const float* maj;
   int n_maj;
   const float* tdata;
-  int n_tdata;
+  long long n_tdata;
   // Measuring instantiation only (tap not null): tap [n_rows + n_trows]
   // bytes set to 1 for every row read; in the dense instantiations tap
   // [sectors(n_dens) + n_maj + sectors(n_tdata)], one byte for each 32-byte
@@ -344,18 +345,24 @@ __device__ __forceinline__ float dot8(float4 a, float4 b, const float* w) {
 }
 
 // 32-byte sectors (8 floats) of an array of n_floats.
-__device__ __forceinline__ size_t sectors(int n_floats) { return ((size_t)n_floats + 7) >> 3; }
+__device__ __forceinline__ size_t sectors(long long n_floats) { return ((size_t)n_floats + 7) >> 3; }
 
 // Trilinear sample of a dense [X, Y, Z] grid at base voxel (ix, iy, iz) with
 // weights w, bitwise the packed row's: the 8 corners in corner order, each 0
 // outside the grid (grids/grid.py gather_voxels), summed as dot8 sums a
 // packed row. `data` is the grid's own array; each corner is tested and read
-// only if inside. kTap: mark the sector of each corner read at tap + its
+// only if inside. kWide (the forward launches): the base voxel's flat
+// offset is made once, in 64 bits (an array may hold 2^31 voxels or more),
+// and each corner adds its strides (Y * Z, Z, 1) to it; else (the gradient
+// launches, whose arrays the wrapper keeps under 2^31 voxels) each corner's
+// offset is an int. kTap: mark the sector of each corner read at tap + its
 // index.
-template <bool kTap>
+template <bool kTap, bool kWide>
 __device__ __forceinline__ float dense_trilinear(const float* data, int X, int Y, int Z,
                                                  int ix, int iy, int iz, const float* w,
                                                  unsigned char* tap) {
+  const long long yz = (long long)Y * Z;
+  const long long base = kWide ? ((long long)ix * Y + iy) * Z + iz : 0;
   float v[8];
   // An invalid base voxel has no corner inside: the sum is 0 as well. The
   // sum is left to nvcc, which fuses it here as dot8 spells it out (the
@@ -367,9 +374,15 @@ __device__ __forceinline__ float dense_trilinear(const float* data, int X, int Y
     const bool inside = cx >= 0 && cx < X && cy >= 0 && cy < Y && cz >= 0 && cz < Z;
     v[c] = 0.f;
     if (inside) {
-      const int flat = (cx * Y + cy) * Z + cz;
-      v[c] = __ldg(data + flat);
-      if (kTap) tap[flat >> 3] = 1;
+      if constexpr (kWide) {
+        const long long flat = base + ((c >> 2) ? yz : 0) + (((c >> 1) & 1) ? Z : 0) + (c & 1);
+        v[c] = __ldg(data + flat);
+        if (kTap) tap[flat >> 3] = 1;
+      } else {
+        const int flat = (cx * Y + cy) * Z + cz;
+        v[c] = __ldg(data + flat);
+        if (kTap) tap[flat >> 3] = 1;
+      }
     }
   }
   float s = v[0] * w[0];
@@ -421,8 +434,10 @@ struct Trav {
 // kTap: also mark in a.tap what the lane reads (see Args), so a measurement
 // can count the distinct bytes a run needs. kDense: 0 reads the fused table,
 // 1 the grids' dense arrays (an int, not a bool, so that the kernels keep
-// the names <., 0|1, .> that register reports and PERF.md use).
-template <bool kTap, int kDense>
+// the names <., 0|1, .> that register reports and PERF.md use). kWide: the
+// dense fetch's offsets in 64 bits (dense_trilinear; warp_loop sets it for
+// the forward kinds).
+template <bool kTap, int kDense, bool kWide>
 __device__ __forceinline__ void traverse(const Lane& L, const Args& a, Trav& tr) {
   const float* fp = a.p.f;
   const int* ip = a.p.i;
@@ -483,7 +498,7 @@ __device__ __forceinline__ void traverse(const Lane& L, const Args& a, Trav& tr)
     tri_weights(fx, fy, fz, w);
     rho = 0.f; bmaj = 0.f; smaj = 0.f;
     if (collide) {
-      rho = dense_trilinear<kTap>(a.dens, X, Y, Z, ix, iy, iz, w, a.tap);
+      rho = dense_trilinear<kTap, kWide>(a.dens, X, Y, Z, ix, iy, iz, w, a.tap);
     } else if (fetch && b_valid) {
       const float2 m = __ldg(reinterpret_cast<const float2*>(a.maj) + b_flat);
       bmaj = m.x; smaj = m.y;
@@ -525,7 +540,7 @@ __device__ __forceinline__ void traverse(const Lane& L, const Args& a, Trav& tr)
 // The adimensional temperature at a camera collision, by the medium's
 // emission arm (see I_EMISSION); (tlx, tly, tlz): the point in the
 // temperature grid's local coordinates, set by arms 2 and 3 only.
-template <bool kTap, int kDense>
+template <bool kTap, int kDense, bool kWide>
 __device__ __forceinline__ float sample_temperature(const Args& a, const Trav& tr,
                                                     float& tlx, float& tly, float& tlz) {
   const float* fp = a.p.f;
@@ -541,7 +556,7 @@ __device__ __forceinline__ float sample_temperature(const Args& a, const Trav& t
     float tw[8];
     tri_weights(tlx - (float)jx, tly - (float)jy, tlz - (float)jz, tw);
     if constexpr (kDense != 0) {
-      temp_adim = dense_trilinear<kTap>(a.tdata, TX, TY, TZ, jx, jy, jz, tw,
+      temp_adim = dense_trilinear<kTap, kWide>(a.tdata, TX, TY, TZ, jx, jy, jz, tw,
                                         kTap ? a.tap + sectors(a.n_dens) + a.n_maj : nullptr);
     } else {
       const bool tvalid = jx >= -1 && jx <= TX - 1 && jy >= -1 && jy <= TY - 1 && jz >= -1 && jz <= TZ - 1;
@@ -629,7 +644,7 @@ __device__ __forceinline__ float ratio_track(float T_ray, float sigma_n, float r
 }
 
 // One step of one lane that is not DONE (integrator.make_step).
-template <bool kTap, int kDense>
+template <bool kTap, int kDense, bool kWide>
 __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   const float* fp = a.p.f;
   const int* ip = a.p.i;
@@ -646,7 +661,7 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   const bool in_shw = L.mode == SHADOW;
 
   Trav tr;
-  traverse<kTap, kDense>(L, a, tr);
+  traverse<kTap, kDense, kWide>(L, a, tr);
   const bool exited = tr.exited, fetch = tr.fetch;
   const float rho = tr.rho, rsig = tr.rsig;
   const float pcx = tr.pcx, pcy = tr.pcy, pcz = tr.pcz;
@@ -659,7 +674,7 @@ __device__ __forceinline__ void lane_step(Lane& L, const Args& a) {
   const float p_n = fmaxf(1.f - p_a - p_s, 0.f);
   if (emission != 0 && cam_col) {
     float tlx, tly, tlz;
-    const float temp_adim = sample_temperature<kTap, kDense>(a, tr, tlx, tly, tlz);
+    const float temp_adim = sample_temperature<kTap, kDense, kWide>(a, tr, tlx, tly, tlz);
     const float temp_k = temp_adim * fp[P_T_SCALE] + fp[P_T_OFFSET];
     float bb[3];
     blackbody(a, temp_k, bb, nullptr);
@@ -822,7 +837,7 @@ __device__ __forceinline__ void replay_step(Lane& L, int q, const Args& a) {
   const float gLinf = L.gx * fp[P_LINF] + L.gy * fp[P_LINF + 1] + L.gz * fp[P_LINF + 2];
 
   Trav tr;
-  traverse<kTap, kDense>(L, a, tr);
+  traverse<kTap, kDense, false>(L, a, tr);
   const float rho = tr.rho, rsig = tr.rsig;
   const float pcx = tr.pcx, pcy = tr.pcy, pcz = tr.pcz;
 
@@ -834,7 +849,7 @@ __device__ __forceinline__ void replay_step(Lane& L, int q, const Args& a) {
   float demis = 0.f, tw = 0.f;
   float tlx = 0.f, tly = 0.f, tlz = 0.f;
   if (emission != 0 && cam_col) {
-    const float temp_adim = sample_temperature<kTap, kDense>(a, tr, tlx, tly, tlz);
+    const float temp_adim = sample_temperature<kTap, kDense, false>(a, tr, tlx, tly, tlz);
     if (!kDense && emission == 1) temperature_local(fp, pcx, pcy, pcz, tlx, tly, tlz);
     const float temp_k = temp_adim * fp[P_T_SCALE] + fp[P_T_OFFSET];
     float bb[3], slope[3];
@@ -1162,6 +1177,9 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
   // the code and registers they have without it.
   constexpr bool kCount = kKind == kWaveCountKind;
   constexpr int kDoneMode = kKind == kReplayKind ? RDONE : DONE;
+  // 64-bit dense offsets for the forward kinds only: the gradient launches
+  // take arrays of fewer than 2^31 voxels and keep the int fetch's registers.
+  constexpr bool kWide = kKind != kRecordKind && kKind != kReplayKind;
   const unsigned lane_id = threadIdx.x & 31u;
   const unsigned below = (1u << lane_id) - 1u;
   Lane L;
@@ -1219,10 +1237,10 @@ __device__ __forceinline__ void warp_loop(const Args& a) {
         replay_step<kTap, kDense>(L, q, a);
       } else if constexpr (kKind == kRecordKind) {
         const int mode0 = L.mode;
-        lane_step<kTap, kDense>(L, a);
+        lane_step<kTap, kDense, kWide>(L, a);
         record_walks(L, mode0, q, a);
       } else {
-        lane_step<kTap, kDense>(L, a);
+        lane_step<kTap, kDense, kWide>(L, a);
       }
       --steps_left;
       if (L.mode == kDoneMode || steps_left == 0) {
@@ -1420,8 +1438,8 @@ int launch(int kind, int device, void* stream, const Args& a) {
 }
 
 void set_tables(Args& a, const float* rows, int n_rows, int row_w, const float* trows, int n_trows,
-                const float* bb_pairs, const float* dens, int n_dens, const float* maj, int n_maj,
-                const float* tdata, int n_tdata, const float* fp, const int* ip, int* scratch,
+                const float* bb_pairs, const float* dens, long long n_dens, const float* maj, int n_maj,
+                const float* tdata, long long n_tdata, const float* fp, const int* ip, int* scratch,
                 unsigned char* tap, unsigned long long* stat) {
   a.rows = rows; a.n_rows = n_rows; a.row_w = row_w;
   a.trows = trows; a.n_trows = n_trows; a.bb_pairs = bb_pairs;
@@ -1437,8 +1455,8 @@ int launch_wave(int kind, int device, void* stream, float* film, const int* pids
                 unsigned int stream_word, int max_steps,
                 const float* rows, int n_rows, int row_w,
                 const float* trows, int n_trows, const float* bb_pairs,
-                const float* dens, int n_dens, const float* maj, int n_maj,
-                const float* tdata, int n_tdata,
+                const float* dens, long long n_dens, const float* maj, int n_maj,
+                const float* tdata, long long n_tdata,
                 const float* fp, const int* ip, int* scratch,
                 unsigned char* tap, unsigned long long* stat) {
   Args a{};
@@ -1473,8 +1491,8 @@ int vpt_num_iparams() { return NUM_IPARAMS; }
 int vpt_trace_lanes(int device, void* stream, float* sf, int* si, const int* pids, const int* streams,
                     int n, int max_steps, const float* rows, int n_rows, int row_w,
                     const float* trows, int n_trows, const float* bb_pairs,
-                    const float* dens, int n_dens, const float* maj, int n_maj,
-                    const float* tdata, int n_tdata,
+                    const float* dens, long long n_dens, const float* maj, int n_maj,
+                    const float* tdata, long long n_tdata,
                     const float* fp, const int* ip, int* scratch,
                     unsigned char* tap, unsigned long long* stat) {
   Args a{};
@@ -1493,8 +1511,8 @@ int vpt_render_wave(int device, void* stream, float* film, const int* pids, int 
                     unsigned int stream_word, int max_steps,
                     const float* rows, int n_rows, int row_w,
                     const float* trows, int n_trows, const float* bb_pairs,
-                    const float* dens, int n_dens, const float* maj, int n_maj,
-                    const float* tdata, int n_tdata,
+                    const float* dens, long long n_dens, const float* maj, int n_maj,
+                    const float* tdata, long long n_tdata,
                     const float* fp, const int* ip, int* scratch,
                     unsigned char* tap, unsigned long long* stat) {
   return launch_wave(kWaveKind, device, stream, film, pids, start, n, stream_word, max_steps, rows, n_rows, row_w,
@@ -1508,8 +1526,8 @@ int vpt_render_wave_counted(int device, void* stream, float* film, const int* pi
                             unsigned int stream_word, int max_steps,
                             const float* rows, int n_rows, int row_w,
                             const float* trows, int n_trows, const float* bb_pairs,
-                            const float* dens, int n_dens, const float* maj, int n_maj,
-                            const float* tdata, int n_tdata,
+                            const float* dens, long long n_dens, const float* maj, int n_maj,
+                            const float* tdata, long long n_tdata,
                             const float* fp, const int* ip, int* scratch,
                             unsigned char* tap, unsigned long long* stat) {
   return launch_wave(kWaveCountKind, device, stream, film, pids, start, n, stream_word, max_steps, rows, n_rows, row_w,
@@ -1529,8 +1547,8 @@ int vpt_record_lanes(int device, void* stream, const float* o_world, int o_strid
                      float* L_out, int* ctr_out, float* tf, int k_walks,
                      const float* rows, int n_rows, int row_w,
                      const float* trows, int n_trows, const float* bb_pairs,
-                     const float* dens, int n_dens, const float* maj, int n_maj,
-                     const float* tdata, int n_tdata,
+                     const float* dens, long long n_dens, const float* maj, int n_maj,
+                     const float* tdata, long long n_tdata,
                      const float* fp, const int* ip, int* scratch,
                      unsigned char* tap, unsigned long long* stat) {
   Args a{};
@@ -1556,8 +1574,8 @@ int vpt_replay_lanes(int device, void* stream, const float* o_world, int o_strid
                      const float* g, const float* Lf, float* gd, float* gt, float* gacc, int* nsteps,
                      const float* rows, int n_rows, int row_w,
                      const float* trows, int n_trows, const float* bb_pairs,
-                     const float* dens, int n_dens, const float* maj, int n_maj,
-                     const float* tdata, int n_tdata,
+                     const float* dens, long long n_dens, const float* maj, int n_maj,
+                     const float* tdata, long long n_tdata,
                      const float* fp, const int* ip, int* scratch,
                      unsigned char* tap, unsigned long long* stat) {
   Args a{};

@@ -332,13 +332,21 @@ def read_nvdb(path: str) -> Dict[str, NvdbGrid]:
 
 def read_nvdb_medium(path: str, pack: bool = True, device=None):
     """Load density (+ optional temperature) from .nvdb into a Medium on
-    `device` (CUDA unless device="cpu").
+    `device` (CUDA unless device="cpu"): read_nvdb_grids, then
+    Medium.from_grids(pack=pack)."""
+    from ..models.medium import Medium
+
+    density, temperature = read_nvdb_grids(path)
+    return Medium.from_grids(density, temperature, pack=pack, device=device)
+
+
+def read_nvdb_grids(path: str):
+    """(density, temperature or None) DenseGrids of a .nvdb file, on the CPU.
 
     Mirrors VolumeGrids::read_from_file (volume_grids.cpp:58-67): a missing
     'density' grid is fatal, a missing 'temperature' grid only warns and
     yields a non-emissive medium.
     """
-    from ..models.medium import Medium
     from .grid import dense_grid_from_array
 
     grids = read_nvdb(path)
@@ -360,7 +368,7 @@ def read_nvdb_medium(path: str, pack: bool = True, device=None):
         from ..utils import logging as vlog
 
         vlog.warn(f'{path} has no "temperature" grid; medium is non-emissive')
-    return Medium.from_grids(density, temperature, pack=pack, device=device)
+    return density, temperature
 
 
 # --------------------------------------------------------------------------

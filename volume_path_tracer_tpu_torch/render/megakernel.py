@@ -148,14 +148,14 @@ _lib = None
 
 # The C interface of csrc/trace_lanes.cu: name -> (restype, argtypes), which
 # _library applies. _P: a pointer (tensor.data_ptr(), the stream, a host
-# array), _I: int, _U: unsigned int. A pointer passed where an int stands
-# would be cut to 32 bits, and that shows only on the card:
-# tests/test_torch_grad_kernels.py holds this table to the source's extern
-# "C" block.
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+# array), _I: int, _U: unsigned int, _L: long long (a dense array's voxel
+# count). A pointer passed where an int stands would be cut to 32 bits, and
+# that shows only on the card: tests/test_torch_grad_kernels.py holds this
+# table to the source's extern "C" block.
+_P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 # rows, n_rows, row_w, trows, n_trows, bb_pairs, dens, n_dens, maj, n_maj,
 # tdata, n_tdata, fp, ip, scratch, tap, stat: the end of every launch's list
-_TABLES = (_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P)
+_TABLES = (_P, _I, _I, _P, _I, _P, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P, _P)
 C_SIGNATURES = {
     "vpt_num_fparams": (_I, ()),
     "vpt_num_iparams": (_I, ()),
@@ -529,10 +529,7 @@ def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.T
     rows = medium.density_rows
     dense = rows is None
     if dense:
-        dens, tdata = dense_arrays(medium, emission_enabled(medium, params))
-        _check_dense(dens, medium.density.shape, "the density array", dev)
-        if tdata is not None:
-            _check_dense(tdata, medium.temperature.shape, "the temperature array", dev)
+        _check_dense_arrays(medium, emission_enabled(medium, params), dev)
         maj = medium.majorants.rows
         if maj.dtype != torch.float32 or maj.dim() != 2 or maj.shape[1] != 2 or maj.device != dev \
                 or not maj.is_contiguous() or maj.data_ptr() % 8:
@@ -557,17 +554,30 @@ def _layout(medium: Medium, params: IntegratorParams, bb_table: Optional[torch.T
     return dense, emission
 
 
-def _check_dense(data: torch.Tensor, shape, name: str, device):
-    """A dense array as the dense instantiations read it: the grid's own,
-    of the grid's `shape` (the kernels index it by that shape, and the launch
-    refuses an array of another length), with 32-bit voxel indices, as row
-    indices are for a table."""
-    if data.dtype != torch.float32 or data.dim() != 3 or data.device != device \
-            or not data.is_contiguous() or data.numel() >= 2**31:
-        raise ValueError(f"{name} must be a contiguous float32 [X, Y, Z] tensor of fewer "
-                         f"than 2^31 voxels on {device}")
+def _check_dense(data: torch.Tensor, shape, name: str, device, gradient: bool = False):
+    """A dense array as the dense instantiations read it: the grid's own, of
+    the grid's `shape` (the kernels index it by that shape, and the launch
+    refuses an array of another length). The forward launches
+    (render_wave_kernel, trace_lanes_kernel) take any voxel count: the fetch
+    (dense_trilinear) makes each voxel's offset in 64 bits. The gradient
+    launches (gradient=True: record_lanes, replay_lanes, whose replay adds
+    into gradient grids of the same shape) take fewer than 2^31 voxels: no
+    card test holds them past that yet."""
+    if data.dtype != torch.float32 or data.dim() != 3 or data.device != device or not data.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 [X, Y, Z] tensor on {device}")
     if tuple(data.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(data.shape)}, its grid {tuple(shape)}")
+    if gradient and data.numel() >= 2**31:
+        raise ValueError(f"{name} has {data.numel()} voxels: a gradient launch takes dense arrays of "
+                         f"fewer than 2^31 voxels")
+
+
+def _check_dense_arrays(medium: Medium, emission: bool, device, gradient: bool = False):
+    """_check_dense on the arrays a dense launch reads (dense_arrays)."""
+    dens, tdata = dense_arrays(medium, emission)
+    _check_dense(dens, medium.density.shape, "the density array", device, gradient)
+    if tdata is not None:
+        _check_dense(tdata, medium.temperature.shape, "the temperature array", device, gradient)
 
 
 def dense_arrays(medium: Medium, emission: bool):
@@ -828,6 +838,8 @@ def _ray_args(what: str, medium: Medium, params: IntegratorParams, bb_table, o_w
                          f"expanded over the rays, got {o_world.dtype} {tuple(o_world.shape)} strides "
                          f"{o_world.stride()} on {o_world.device}")
     consts = kernel_constants(medium, params, bb_table)
+    if consts.dense:
+        _check_dense_arrays(medium, consts.emission == 3, dev, gradient=True)
     pids = pixel_ids.to(dev)
     pids = pids.contiguous() if pids.dtype == torch.int32 else _as_i32_bits(pids)
     _check(pids, "pixel_ids", torch.int32, (n,), dev)
